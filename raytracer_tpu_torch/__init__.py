@@ -1,26 +1,31 @@
 """raytracer_tpu_torch -- the PyTorch/CUDA port of ``raytracer_tpu``.
 
-The forward render path of the JAX package, for an NVIDIA H100: the scene
-DSL, scenes and cameras as tensor dataclasses, the table packers, and the
-fused path-trace kernel K1 written by hand in CUDA (``csrc/wavefront.cu``)
-with its plain PyTorch version (``ops/cuda/wavefront.py``).  Module names
-follow the JAX package's.  The package imports neither JAX nor
-``raytracer_tpu``, and needs no GPU, ``nvcc`` or ``triton`` to import: the
-kernel is built at its first launch.
+The forward render path and the gradient pass of the JAX package, for an
+NVIDIA H100: the scene DSL, scenes and cameras as tensor dataclasses, the
+table packers, the fused path-trace kernel K1 (``csrc/wavefront.cu``) and
+its adjoint K5 (``csrc/wavefront_bwd.cu``) written by hand in CUDA, each
+with its plain PyTorch version (``ops/cuda/``), the wavefront renderer
+differentiated by autograd, and inverse rendering.  Module names follow the
+JAX package's.  The package imports neither JAX nor ``raytracer_tpu``, and
+needs no GPU, ``nvcc`` or ``triton`` to import: the kernels are built at
+their first launch.
 
   L1  maths / rng / image            vector math, pcg3d counters, image IO
   L2  scene / camera / parser        tensor dataclasses, the DSL parser
-  L3  ops (tables, cuda), render     K1 + dispatch, framebuffer finish
-  L4  api / cli                      embedding API, CLI driver
-      models, utils                  scene builders, profiling
+  L3  intersect / materials          closest hit and scatter on wavefronts
+  L4  ops (tables, diff, cuda),      K1 + K5 + dispatch, the wavefront
+      render                         renderer, framebuffer finish
+  L5  grad, api / cli                inverse rendering, embedding API, CLI
+      models, utils                  scene builders, profiling, checkpoints
 """
 
 from . import maths, rng, image
 from . import scene, camera, parser
-from . import models, ops, render
+from . import intersect, materials
+from . import models, ops, render, grad
 
 from .camera import Camera, camera_from_arrays
-from .render import Options, ray_trace, finalize_image
+from .render import Options, ray_trace, render_linear, finalize_image
 from .scene import (Scene, Materials, build_scene, build_materials,
                     scene_from_arrays, DIFFUSE, METAL, DIELECTRIC, EMISSION)
 from .parser import parse_input, parse_world, ParseError

@@ -2,8 +2,10 @@
 
 Port of ``raytracer_tpu/maths.py``: everything works on tensors whose last
 axis has length 3, with the reference's semantics (maths.rs) -- ``normalize``
-divides by sqrt(|v|^2) with no epsilon, and cross products are never
-renormalised (NVec3::cross, maths.rs:131-137).
+divides by sqrt(|v|^2) with no epsilon, cross products are never
+renormalised (NVec3::cross, maths.rs:131-137), ``refract`` takes the ``abs``
+under its square root (maths.rs:31-36).  Everything is differentiable by
+autograd; ``safe_sqrt`` keeps the cotangent finite at zero.
 """
 
 from __future__ import annotations
@@ -11,7 +13,34 @@ from __future__ import annotations
 import torch
 
 __all__ = ["vec3", "dot", "cross", "length", "length_squared", "normalize",
-           "lerp"]
+           "near_zero", "reflect", "refract", "lerp", "safe_sqrt"]
+
+
+class _SafeSqrt(torch.autograd.Function):
+    """sqrt whose derivative is 0 (not inf) at x <= 0: the counterpart of
+    the JAX package's ``safe_sqrt`` custom JVP (maths.py:33-55)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = torch.sqrt(x)
+        ctx.save_for_backward(x, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        positive = x > 0
+        dydx = torch.where(positive,
+                           0.5 / torch.where(positive, y, torch.ones_like(y)),
+                           torch.zeros_like(y))
+        return dydx * g
+
+
+def safe_sqrt(x: torch.Tensor) -> torch.Tensor:
+    """sqrt with the primal of ``torch.sqrt`` and a zero cotangent at
+    x <= 0, so exactly-zero inputs on masked or grazing lanes (refract's
+    ``sqrt(abs(1 - |r_perp|^2))``) never turn a zero cotangent into NaN."""
+    return _SafeSqrt.apply(x)
 
 
 def vec3(x, y, z, dtype=torch.float32, device=None) -> torch.Tensor:
@@ -45,6 +74,31 @@ def length(v: torch.Tensor) -> torch.Tensor:
 def normalize(v: torch.Tensor) -> torch.Tensor:
     """v / sqrt(|v|^2), no epsilon (maths.rs:111-118)."""
     return v / length(v)[..., None]
+
+
+def near_zero(v: torch.Tensor, s: float = 1e-8) -> torch.Tensor:
+    """All components below ``s`` in magnitude (maths.rs:46-49)."""
+    return torch.all(v.abs() < s, dim=-1)
+
+
+def reflect(v: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """v - 2 (v.n) n (maths.rs:26-28)."""
+    return v - 2.0 * dot(v, n)[..., None] * n
+
+
+def refract(uv: torch.Tensor, n: torch.Tensor, etai_over_etat
+            ) -> torch.Tensor:
+    """Snell refraction in the reference's form (maths.rs:31-36):
+    ``cos = (-uv).n`` unclamped, ``r_perp = eta (uv + cos n)``,
+    ``r_par = -sqrt(|1 - |r_perp|^2|) n`` -- the ``abs`` turns total
+    internal reflection into a sign flip, as the reference does."""
+    eta = torch.as_tensor(etai_over_etat, dtype=uv.dtype,
+                          device=uv.device)[..., None]
+    cos_theta = dot(-uv, n)[..., None]
+    r_out_perp = eta * (uv + cos_theta * n)
+    r_out_parallel = -safe_sqrt(
+        (1.0 - length_squared(r_out_perp)).abs())[..., None] * n
+    return r_out_perp + r_out_parallel
 
 
 def lerp(a, b, t) -> torch.Tensor:

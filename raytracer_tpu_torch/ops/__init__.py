@@ -7,6 +7,12 @@ engine ``resolve_dispatch`` picks:
     (``ops/cuda/wavefront.py``, ``csrc/wavefront.cu``);
   * ``torch`` -- K1's plain PyTorch version, on the tensors' device.
 
+The gradient pass has engines of its own, named as in the JAX package
+(``grad.make_loss_fn``): ``"pallas"`` is ``ops/diff.py``'s
+``render_linear_diff``, K1 forward and K5 (``ops/cuda/wavefront_bwd.py``,
+``csrc/wavefront_bwd.cu``) backward; ``"xla"`` is autograd through the
+wavefront renderer ``render.render_linear``.
+
 The JAX package's binned, streamed and sorted engines are not ported yet,
 so every scene, however many triangles it has, goes to K1.  There is no
 silent fallback: a CUDA device gets the kernel or an error.

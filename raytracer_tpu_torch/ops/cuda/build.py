@@ -1,11 +1,14 @@
 """Build the package's CUDA sources with ``nvcc`` and load them with ctypes.
 
-``raytracer_tpu_torch/csrc/*.cu`` expose plain C functions; they compile in
-seconds into one shared library (no PyTorch headers), which is cached under
+``raytracer_tpu_torch/csrc/*.cu`` expose plain C functions (no PyTorch
+headers) and share device code through ``csrc/*.cuh``.  Each ``.cu`` file
+compiles to an object in its own ``nvcc`` process, all started together, and
+one more ``nvcc`` links them into one shared library, cached under
 ``build/raytracer_tpu_torch/<hash>/`` at the repository root.  The hash
-covers the sources and the flags, so an edit rebuilds and an unchanged
-checkout reuses its build.  Nothing here runs at import time: the first
-CUDA launch calls ``load()``.
+covers the sources, the headers and the flags, so an edit rebuilds and an
+unchanged checkout reuses its build.  ``ptxas.log`` beside the library keeps
+each kernel's register and local-memory use.  Nothing here runs at import
+time: the first CUDA launch calls ``load()``.
 
 Flags: ``-fmad=false`` keeps every multiply and add separately rounded (and
 nvcc's defaults keep division and square root IEEE), so a kernel follows the
@@ -29,7 +32,7 @@ BUILD_ROOT = PACKAGE_DIR.parent / "build" / "raytracer_tpu_torch"
 LIB_NAME = "libraytracer_tpu_torch.so"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def nvcc_path() -> str:
@@ -52,34 +55,45 @@ def sources() -> list[Path]:
 
 def source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sorted(CSRC_DIR.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds: list[list[str]]) -> list[str]:
+    """Run the commands in parallel; raise with the output of the first
+    that fails, else return their stderr."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    outs = [p.communicate() for p in procs]
+    for cmd, p, (out, err) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): "
+                               f"{' '.join(cmd)}\n{out}\n{err}")
+    return [err for _, err in outs]
+
+
 def build() -> Path:
     """Compile the sources unless this exact build exists; return the
-    library's path.  Writes to a temporary file and renames it, so
-    concurrent builders never load a half-written library."""
+    library's path.  Writes to a temporary directory and renames the
+    library into place, so concurrent builds never load a half-written
+    one."""
     out_dir = BUILD_ROOT / source_hash()
     lib = out_dir / LIB_NAME
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, lib)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    nvcc = nvcc_path()
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        objs = [Path(tmp) / (src.stem + ".o") for src in sources()]
+        logs = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                         for src, obj in zip(sources(), objs)])
+        tmp_lib = Path(tmp) / LIB_NAME
+        _run_all([[nvcc, "-shared", "-o", str(tmp_lib), *map(str, objs)]])
+        (out_dir / "ptxas.log").write_text("".join(logs))
+        os.replace(tmp_lib, lib)
     return lib
 
 
@@ -94,6 +108,13 @@ def load() -> ctypes.CDLL:
     fn.argtypes = [p, i, p, i, p,        # sph, n_sph, tri, n_tri, cam
                    p, p, i, p, p, i,     # sphere / triangle clusters
                    p, p,                 # mean, segs
+                   i, i, u, i, i, i,     # width .. shard_rows
+                   i, i, f, i, p]        # spp, depth, inv_spp, parity, stream
+    fn.restype = ctypes.c_int
+    fn = lib.rt_wavefront_grad
+    fn.argtypes = [p, i, p, i, p,        # sph, n_sph, tri, n_tri, cam
+                   p, p, i,              # triangle clusters
+                   p, p, p,              # g_image, slab, cam_lanes
                    i, i, u, i, i, i,     # width .. shard_rows
                    i, i, f, i, p]        # spp, depth, inv_spp, parity, stream
     fn.restype = ctypes.c_int

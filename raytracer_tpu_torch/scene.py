@@ -16,9 +16,11 @@ from typing import Dict, Sequence, Tuple
 import numpy as np
 import torch
 
+from . import maths
+
 __all__ = ["DIFFUSE", "METAL", "DIELECTRIC", "EMISSION", "Materials",
            "Scene", "HostScene", "build_materials", "build_scene",
-           "scene_from_arrays"]
+           "scene_from_arrays", "triangle_normals"]
 
 # Material kind codes (materials.rs:7-12 enum order)
 DIFFUSE, METAL, DIELECTRIC, EMISSION = 0, 1, 2, 3
@@ -187,3 +189,11 @@ def scene_from_arrays(arrays: Dict[str, np.ndarray], *, exact_planes: bool,
                      t("materials.ir", np.float32))
     return Scene(*(t(f, geom_types[f]) for f in _GEOM_FIELDS),
                  materials=mats, exact_planes=exact_planes)
+
+
+def triangle_normals(scene: Scene) -> torch.Tensor:
+    """Unit normal per triangle [T, 3], Triangle::new semantics
+    (common.rs:116-123): a zero-area triangle keeps its zero normal."""
+    n = maths.cross(scene.tri_v1 - scene.tri_v0, scene.tri_v2 - scene.tri_v0)
+    ln = maths.safe_sqrt(torch.sum(n * n, dim=-1, keepdim=True))
+    return n / torch.where(ln == 0.0, torch.ones_like(ln), ln)

@@ -16,6 +16,8 @@ MODULES = [
     "raytracer_tpu_torch",
     "raytracer_tpu_torch.rng",
     "raytracer_tpu_torch.maths",
+    "raytracer_tpu_torch.intersect",
+    "raytracer_tpu_torch.materials",
     "raytracer_tpu_torch.scene",
     "raytracer_tpu_torch.camera",
     "raytracer_tpu_torch.parser",
@@ -27,8 +29,15 @@ MODULES = [
     "raytracer_tpu_torch.ops.cuda",
     "raytracer_tpu_torch.ops.cuda.build",
     "raytracer_tpu_torch.ops.cuda.wavefront",
+    "raytracer_tpu_torch.ops.cuda.wavefront_bwd",
+    "raytracer_tpu_torch.ops.diff",
     "raytracer_tpu_torch.render",
     "raytracer_tpu_torch.utils.profiling",
+    "raytracer_tpu_torch.utils.checkpoint",
+    "raytracer_tpu_torch.grad",
+    "raytracer_tpu_torch.grad.params",
+    "raytracer_tpu_torch.grad.finite_diff",
+    "raytracer_tpu_torch.grad.inverse",
     "raytracer_tpu_torch.api",
     "raytracer_tpu_torch.cli",
 ]
