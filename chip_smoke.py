@@ -6,28 +6,35 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 It drives the port's forward render path through the hand-written CUDA
-kernel K1, and its gradient pass through K1 and the backward kernel K5, and
-fails (non-zero exit, no result line) if any phase fails:
+kernel K1, its gradient pass through K1 and the backward kernel K5, and its
+triangle-mesh paths through the binned per-bounce kernel K3 and the
+streamed big-mesh kernel K4, and fails (non-zero exit, no result line) if
+any phase fails:
 
   1. device: a CUDA GPU is required; prints its name and power limit;
   2. build: compiles csrc/*.cu with nvcc (first use) and prints the time;
-  3. kernel vs plain version on the card, at 64x36, 4 spp, depth 8: the
+  3. K1 vs its plain version on the card, at 64x36, 4 spp, depth 8: the
      default world, the FFI world (triangles), the random sphere field with
      sphere clusters, the icosphere mesh with triangle clusters, and a
      banded render against the rows of a whole one.  Bar: equal segment
      counts and max|diff| <= 1e-5;
-  4. the main path: ``cli.main`` at width 512, 64 spp, depth 8, checked
-     by the launch counters (one K1 launch per row band, no K5) and
-     against the plain version's framebuffer;
-  5. throughput on the card: rays/s (traced segments / s) for the default
-     world at 512x512, 64 spp, depth 8 and the random sphere field at
-     512x512, 16 spp, depth 8, with K1's and the plain version's times;
   3b. K5 vs its plain version on the card, at 64x36, 2 spp, depth 4: the
      default world (every parameter class and the camera), the FFI world
      (parity sign), mesh_scene(2) with TriCull clusters (correct sign) and
      a banded call.  Bar: winner ids equal lane for lane and dsph, dtri,
      dcam within 1e-5 * max|ref| + 1e-7; and K1 + K5 against autograd
      through the wavefront renderer within 5e-3 * max|ref| + 1e-7;
+  3c. K4 and K3 vs their plain versions at 64x36, depth 4 (4 spp; 2 on the
+     164k scene) on mesh-1292, OBJ-10k and the bench's 164k-triangle
+     scene, with the host time of each table build; K3 with the supertop
+     scan switched, node_exit off and generous caps bitwise equal to the
+     default run, tiny caps tripping the overflow guard; a K4 band against
+     the rows of a whole K4 render.  Bar: equal segments, and max|diff|
+     <= 1e-5 except on at most 0.01% of the pixels (exact triangle ties),
+     each reported;
+  4. the main path: ``cli.main`` at width 512, 64 spp, depth 8, checked
+     by the launch counters (one K1 launch per row band, no K5) and
+     against the plain version's framebuffer;
   4b. the training path at full width: the bench's gradient configuration
      (default world 256x256, 8 spp, depth 4, target at seed 0, loss at
      seed 1, sphere_center + 0.02, sphere_radius, mat_color), value and
@@ -38,11 +45,34 @@ fails (non-zero exit, no result line) if any phase fails:
      the geometry of this unmasked loss, in the JAX package either), then
      5 recovering mat_color from half of it on the same frame, one K1 and
      one K5 launch each: the loss stays finite and falls;
+  4c. the mesh main paths at full width: ``api.RenderSession`` over
+     OBJ-10k at 512x288, 4 spp, depth 4 resolves to ``cuda_binned``; its
+     first frame (the probe) launches K3 depth times and nothing else; the
+     same camera again runs capped (K3 only, no new probe), bitwise the
+     uncapped K3 frame and the probe's framebuffer, and is held against
+     the plain version under the same caps; a moved camera renders a new
+     probe.  ``cli.main`` with ``obj=`` (the OBJ-10k triangles written
+     with ``dump_obj``), width 512, 16 spp, depth 8 launches K4 once per
+     band and nothing else; that frame through K4 and through its plain
+     version at the CLI's shape and 16 bands, held against each other, the
+     K4 one bitwise the CLI's framebuffer.  Both framebuffers within 1 LSB
+     of K1's render of the same scene on 99.99% of pixels;
+  5. throughput on the card: rays/s (traced segments / s) for the default
+     world at 512x512, 64 spp, depth 8 and the random sphere field at
+     512x512, 16 spp, depth 8, with K1's and the plain version's times;
   5b. gradient throughput: paths/s of value-and-gradient and the Adam
      step's time; K1 and K5 at the training path's shapes (the start
      params, the loss's image cotangent) by CUDA events, each held against
      its plain version there with the bars of phases 3 and 3b, and the
-     plain versions' times.
+     plain versions' times;
+  5c. mesh throughput: rays/s through ``render_linear_fast`` (warm capped
+     K3 frames) for mesh-1292, OBJ-10k and 164k at 512x512, 4 spp, depth
+     4, with no overflowed frame, K1's rays/s on the same frames, K3's
+     per-pass and regroup times, each capped frame bitwise the uncapped
+     one; K3 and K4 against their plain versions at OBJ-10k 512x288, 4 spp,
+     depth 4, with their times and bounds (the node and triangle tests
+     counted from the plain versions' rays and final hits); K4 at the
+     CLI's shape.
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -301,7 +331,11 @@ def phase_throughput(rtt, smi: str) -> dict:
         else:
             log(f"  {label}: plain version not run at full size (1 spp took "
                 f"{one:.3f} s)")
-        result[label] = dict(rays_per_s=segs / sec, ms=ms, plain_ms=plain_ms)
+        b = bound(kseg * (sph.shape[1] * FLOPS_SPHERE + FLOPS_SHADE),
+                  nbytes(sph, tri, cv, kern))
+        log(f"  {label}: K1 bound {b[0]:.4f} ms by {b[1]}")
+        result[label] = dict(rays_per_s=segs / sec, ms=ms, plain_ms=plain_ms,
+                             bound=b)
     return result
 
 
@@ -569,20 +603,608 @@ def phase_grad_throughput(rtt, smi: str) -> dict:
     log(f"  K5 plain version {plain_ms:.3f} ms; K5 vs plain: winner ids "
         f"equal, per-lane max|diff| {lane_err:.3e}, dsph/dtri/dcam "
         f"max|diff| {' / '.join(f'{e:.3e}' for e in errs)}")
+    b = bound(kseg * (2 * (sph.shape[1] * FLOPS_SPHERE + FLOPS_SHADE)
+                      + FLOPS_ADJOINT), nbytes(sph, tri, g, cv, kslab, kcam))
+    log(f"  K5 bound {b[0]:.4f} ms by {b[1]}")
     return dict(paths_per_s=paths / sec, ms=ms, plain_ms=plain_ms,
-                k1_err=k1_err, k5_err=max(errs))
+                k1_err=k1_err, k5_err=max(errs), bound=b)
+
+
+# ---------------------------------------------------------------------------
+# the mesh engines: K3 (binned) and K4 (streamed)
+# ---------------------------------------------------------------------------
+
+MESH_SMALL = dict(width=64, height=36, depth=4, seed=3)
+MESH_FULL = dict(width=512, height=512, samples_per_pixel=4, depth=4)
+API_SHAPE = dict(width=512, height=288, samples_per_pixel=4, depth=4)
+# float32 operations (add, multiply, divide, square root), counted from
+# csrc/path_common.cuh: a sphere test, the shading a traced segment needs
+# (sphere and triangle normal fix-ups, the draw, the three scatters, the
+# bookkeeping), a slab test (aabb_test; K3's next-top selection does one
+# per top or supertop), a bounding-sphere test (bound_test) and a triangle
+# test (tri_step); the mesh kernels' node and triangle tests are counted
+# from each run's rays by _walk_ops
+FLOPS_SPHERE, FLOPS_SHADE, FLOPS_BOX = 19, 120, 12
+FLOPS_BOUND, FLOPS_TRI = 19, 51
+WARP = 32
+# the adjoint sweep of K5 per segment (an estimate from wavefront_bwd.cu)
+FLOPS_ADJOINT = 250
+PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12     # H100 SXM float32, HBM3
+
+
+def bound(ops, nbytes):
+    """(bound ms, what bounds it) for ``ops`` float32 operations and
+    ``nbytes`` bytes on the H100's published peaks."""
+    t_ops, t_bytes = ops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def nbytes(*ts):
+    out = 0
+    for t in ts:
+        if isinstance(t, torch.Tensor):
+            out += t.numel() * t.element_size()
+        elif isinstance(t, (tuple, list)):
+            out += nbytes(*t)
+    return out
+
+
+def big_mesh_scene(rtt):
+    """bench.py:132-146: two subdivision-6 icospheres, 163,840 triangles."""
+    from raytracer_tpu_torch.models.builders import icosphere_mesh
+    from raytracer_tpu_torch.scene import (DIFFUSE, METAL, build_materials,
+                                           build_scene)
+    tris = (icosphere_mesh((-0.6, 0.0, -1.4), 0.45, 0, 6)
+            + icosphere_mesh((0.6, 0.0, -1.2), 0.45, 2, 6))
+    mats = build_materials([(DIFFUSE, (0.7, 0.3, 0.3), 0.0, 1.0),
+                            (DIFFUSE, (0.8, 0.8, 0.0), 0.0, 1.0),
+                            (METAL, (0.85, 0.85, 0.9), 0.05, 1.0)])
+    scene = build_scene([((0.0, -100.5, -1.0), 100.0, 1)], tris, mats,
+                        exact_planes=True)
+    return scene, rtt.Camera.new_at((0.0, 0.0, 0.0), 1.77778)
+
+
+def mesh_scenes(rtt):
+    return {"mesh-1292": rtt.models.mesh_scene(3),
+            "OBJ-10k": rtt.models.obj_mesh_scene(),
+            "164k": big_mesh_scene(rtt)}
+
+
+def compare_image(name, kernel, plain):
+    """Hold a kernel's mean image against its plain version's: equal
+    segments, and max|diff| <= TOL except on at most 0.01% of the pixels
+    (exact triangle ties), each reported."""
+    (km, ks), (pm, ps) = kernel, plain
+    if not torch.isfinite(km).all():
+        raise SystemExit(f"{name}: kernel output is not finite")
+    d = (km - pm).abs().amax(dim=-1)
+    err = float(d.max())
+    bad = (d > TOL).nonzero().tolist()
+    log(f"  {name}: max|diff| {err:.3e}, segments kernel {ks} plain {ps}, "
+        f"{len(bad)} pixels over {TOL}" + (f": {bad[:8]}" if bad else ""))
+    if len(bad) > 1e-4 * d.numel() or ks != ps:
+        raise SystemExit(f"{name}: kernel disagrees with the plain version "
+                         f"(max|diff| {err}, {len(bad)} pixels, segments "
+                         f"{ks} vs {ps})")
+    return err
+
+
+def _sphere_test(b):
+    """bound_test of every ray against every column of b (4, M): [n, M]."""
+    from raytracer_tpu_torch.ops.cuda import wavefront_stream as ws
+    return lambda ray, cull: ws.bound_test(
+        b, slice(None), [x[:, None] for x in ray], cull[:, None])
+
+
+def _box_test(a):
+    """aabb_test of every ray against every column of a (6, M): [n, M]."""
+    from raytracer_tpu_torch.ops.cuda import wavefront as wfc
+    from raytracer_tpu_torch.ops.cuda import wavefront_binned as wb
+
+    def test(ray, cull):
+        tn, tf = wb._aabb_entry(a, ray, [wfc._inv_dir(d) for d in ray[3:]])
+        return (tn <= tf) & (tf > wfc.T_MIN) & (tn <= cull[:, None])
+    return test
+
+
+def _parents(ranges, n_children):
+    """[n_children] index of the node whose (2, C) child range holds each
+    child."""
+    parent = torch.zeros(n_children, dtype=torch.long, device=ranges.device)
+    for k, (c0, c1) in enumerate(ranges.t().tolist()):
+        parent[c0:c1] = k
+    return parent
+
+
+def _walk_ops(ray, alive, cull, wid, n_warps, levels, leaf_tris):
+    """Float32 operations of one bounce's warp-culled walk that the kernel
+    cannot skip.  ``levels``: (test(ray, cull) -> [n, M] bool, each node's
+    parent in the level above or None, operations per test), top level
+    first; ``leaf_tris``: triangles in each node of the last level; ``wid``:
+    each lane's warp.  A warp tests a node when a live lane of it passes
+    the node's parent (a top-level node: when one passes the node itself)
+    and a leaf's triangles when one passes the leaf, and all 32 lanes
+    execute each test.  The culling distance is each ray's final closest
+    hit (capped as the kernel caps it), never above the walk's own at any
+    step, so the kernel makes every test counted here; top-level tests that
+    fail are left out."""
+    n = ray[0].shape[0]
+    passed = []
+    for test, _, _ in levels:
+        acc = None
+        for i in range(0, n, 1 << 15):
+            sl = slice(i, i + (1 << 15))
+            m = test([x[sl] for x in ray], cull[sl]) & alive[sl, None]
+            if acc is None:
+                acc = torch.zeros((n_warps, m.shape[1]), dtype=torch.int32,
+                                  device=m.device)
+            acc.index_add_(0, wid[sl], m.to(torch.int32))
+        passed.append(acc > 0)
+    ops, above = 0.0, None
+    for (_, parent, flops), p in zip(levels, passed):
+        tested = p if parent is None else above[:, parent]
+        ops += flops * float(tested.sum())
+        above = p & tested
+    ops += FLOPS_TRI * float((above.double() @ leaf_tris.double()).sum())
+    return WARP * ops
+
+
+def _k4_walk_ops(records, sargs, width):
+    """_walk_ops summed over the recorded bounces of K4's plain version
+    (sphere_hits calls: ray, live lanes and the final hit of each pixel
+    lane, row-major over the band), with K1's 8x4-pixel warps."""
+    _, _, leafb, leafn, topb, topr, _, _ = sargs
+    levels = [(_sphere_test(topb), None, FLOPS_BOUND),
+              (_sphere_test(leafb), _parents(topr, leafb.shape[1]),
+               FLOPS_BOUND)]
+    ops = 0.0
+    for a, _, h in records:
+        ray, alive = a[2], a[3]
+        idx = torch.arange(alive.shape[0], device=alive.device)
+        row, col = idx // width, idx % width
+        wpr = -(-width // 8)
+        wid = (row // 4) * wpr + col // 8
+        ops += _walk_ops(ray, alive, h[0], wid, int(wid.max()) + 1, levels,
+                         leafn[0])
+    return ops
+
+
+def _k3_walk_ops(passes, hits):
+    """_walk_ops summed over the recorded passes of K3's plain version
+    (binned_pass_ref calls and their sphere_hits calls), with warps of 32
+    consecutive slots and the culling cap of binned_pass_ref: the root exit
+    and, after the primary pass, the walk-exit bound."""
+    from raytracer_tpu_torch.ops import tables as tb
+    from raytracer_tpu_torch.ops.cuda import wavefront as wfc
+    from raytracer_tpu_torch.ops.cuda import wavefront_binned as wb
+    ops = 0.0
+    for (pa, _, _), (ha, _, h) in zip(passes, hits):
+        T, state, ray, alive = pa[0], pa[2], ha[2], ha[3]
+        levels = [(_box_test(T.topa), None, FLOPS_BOX),
+                  (_box_test(T.grpa), _parents(T.topr, T.grpa.shape[1]),
+                   FLOPS_BOX),
+                  (_box_test(T.suba), torch.arange(
+                      T.suba.shape[1], device=alive.device) // tb.GROUP_SUBS,
+                   FLOPS_BOX)]
+        rcx, rcy, rcz, rr2 = T.root[:, 0].tolist()
+        ox, oy, oz, dx, dy, dz = ray
+        ocx, ocy, ocz = ox - rcx, oy - rcy, oz - rcz
+        rhb = ocx * dx + ocy * dy + ocz * dz
+        rdisc = rhb * rhb - (ocx * ocx + ocy * ocy + ocz * ocz - rr2)
+        rexit = -rhb + torch.sqrt(torch.clamp_min(rdisc, 0.0))
+        root_p = (rdisc >= 0.0) & (rexit > wfc.T_MIN) & alive & (rr2 > 0.0)
+        cap = torch.where(root_p, rexit * wb._EXIT_MUL + wb._EXIT_ADD,
+                          -wfc.BIG)
+        if state is not None:
+            cap = torch.minimum(cap, state[wb.ST_EXITB])
+        n = alive.shape[0]
+        wid = torch.arange(n, device=alive.device) // WARP
+        ops += _walk_ops(ray, alive, torch.minimum(h[0], cap), wid,
+                         n // WARP, levels, T.subn[0])
+    return ops
+
+
+def _sync_ms(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def _binned_args(ops, tables, scene, cam, dev):
+    (sph, scl, *t) = ops.scene_sorted_tables(scene, dev)
+    order, keys = ops._camera_order(t[4], cam, dev)
+    return (sph, *t, tables.camera_vec(cam).to(dev)), dict(
+        sph_clusters=scl, top_order=order, top_keys=keys)
+
+
+def phase_mesh_vs_plain(rtt, scenes) -> dict:
+    from raytracer_tpu_torch import ops
+    from raytracer_tpu_torch.ops import tables
+    from raytracer_tpu_torch.ops.cuda import wavefront_binned as wb
+    from raytracer_tpu_torch.ops.cuda import wavefront_stream as ws
+    dev = torch.device("cuda")
+    log(f"\nK4 and K3 vs plain versions at {MESH_SMALL}")
+    worst = {"K3": 0.0, "K4": 0.0}
+    out = {"plain_ms": {}, "table_ms": {}}
+    for label, (scene, cam) in scenes.items():
+        ms_sorted, _ = _sync_ms(lambda: ops.scene_sorted_tables(scene, dev))
+        ms_stream, _ = _sync_ms(lambda: ops.scene_stream_tables(scene, dev))
+        out["table_ms"][label] = (ms_sorted, ms_stream)
+        log(f"  {label}: {scene.num_triangles} triangles; host table builds "
+            f"sorted {ms_sorted:.3f} ms, streamed {ms_stream:.3f} ms")
+        shape = dict(MESH_SMALL, samples_per_pixel=2 if label == "164k"
+                     else 4)
+        _, args, kw = ops._stream_call(scene, cam, dev, plain=False)
+        k = ws.render_linear_stream_cuda(*args, **shape, **kw)
+        pms4, p = _sync_ms(lambda: ws.render_linear_stream_ref(
+            *args, **shape, **kw))
+        worst["K4"] = max(worst["K4"], compare_image(f"K4 {label}", k, p))
+        bargs, bkw = _binned_args(ops, tables, scene, cam, dev)
+        k = wb.render_linear_binned(*bargs, **shape, **bkw)
+        pms3, p = _sync_ms(lambda: wb.render_linear_binned(
+            *bargs, **shape, **bkw, plain=True))
+        worst["K3"] = max(worst["K3"], compare_image(f"K3 {label}", k, p))
+        out["plain_ms"][label] = (pms3, pms4)
+        log(f"  {label}: plain versions K3 {pms3:.3f} ms, K4 {pms4:.3f} ms "
+            f"at spp {shape['samples_per_pixel']}")
+        variants = {"node_exit off": dict(node_exit=False),
+                    "generous caps": dict(bounce_caps=(1 << 22,) * 3)}
+        variants["super_selection " + ("off" if label == "164k" else "on")] \
+            = dict(super_selection=label != "164k")
+        for vname, extra in variants.items():
+            got = wb.render_linear_binned(*bargs, **shape, **bkw, **extra)
+            if not torch.equal(got[0], k[0]) or got[1] != k[1]:
+                raise SystemExit(f"K3 {label} with {vname} is not bitwise "
+                                 f"the default run")
+        _, _, over = wb.render_linear_binned(*bargs, **shape, **bkw,
+                                             bounce_caps=(32,) * 3)
+        if not over > 0:
+            raise SystemExit(f"K3 {label}: tiny caps did not trip the guard")
+        log(f"  {label}: K3 with {', '.join(variants)} bitwise equal to the "
+            f"default; caps of 32 slots overflow by {over} rays")
+    # a K4 band against the rows of a whole K4 render
+    scene, cam = scenes["OBJ-10k"]
+    _, args, kw = ops._stream_call(scene, cam, dev, plain=False)
+    shape = dict(MESH_SMALL, samples_per_pixel=4)
+    whole, _ = ws.render_linear_stream_cuda(*args, **shape, **kw)
+    band = ws.render_linear_stream_cuda(*args, **shape, **kw, shard_rows=8,
+                                        row_offset=9)
+    worst["K4"] = max(worst["K4"], compare_image(
+        "K4 OBJ-10k band rows 9..16", band, ws.render_linear_stream_ref(
+            *args, **shape, **kw, shard_rows=8, row_offset=9)))
+    if not torch.equal(band[0], whole[9:17]):
+        raise SystemExit("K4 band differs from the whole render's rows")
+    log("  K4 band rows are bitwise the whole render's")
+    out["worst"] = worst
+    return out
+
+
+def _counters():
+    from raytracer_tpu_torch.ops.cuda import wavefront as wfc
+    from raytracer_tpu_torch.ops.cuda import wavefront_binned as wb
+    from raytracer_tpu_torch.ops.cuda import wavefront_bwd as wbw
+    from raytracer_tpu_torch.ops.cuda import wavefront_stream as ws
+    return (wfc, wbw, wb, ws)
+
+
+def _zero_counts():
+    for m in _counters():
+        m.LAUNCHES = 0
+
+
+def _read_counts():
+    return dict(zip(("K1", "K5", "K3", "K4"),
+                    (m.LAUNCHES for m in _counters())))
+
+
+def _lsb_check(name, fb, ref):
+    diff = np.abs(fb.astype(np.int32) - ref.astype(np.int32)).max(-1)
+    over = int((diff > 1).sum())
+    log(f"  {name} vs K1's framebuffer: max {int(diff.max())} LSB, "
+        f"{int((diff > 0).sum())} pixels differ, {over} by more than 1 LSB "
+        f"of {diff.size}")
+    if over > 1e-4 * diff.size:
+        raise SystemExit(f"{name}: {over} pixels differ from K1's by more "
+                         f"than 1 LSB")
+
+
+def _caps(ops, scene, width, height):
+    """The autotuned caps of ``scene``'s frames at this shape."""
+    return next(v[1] for k, v in ops._BINNED_CAPS.items()
+                if k[0] == id(scene) and k[2:4] == (width, height))
+
+
+def _session_capped_frame(scene, cam, fb, seed) -> float:
+    """The session's camera again through ``render_linear_fast`` (the
+    session's own path, now capped): K3 launches only, no new probe, the
+    probe frame's framebuffer, bitwise the uncapped kernel frame, and
+    within the bar of the plain version under the same caps."""
+    from raytracer_tpu_torch import ops
+    from raytracer_tpu_torch.ops import tables
+    from raytracer_tpu_torch.ops.cuda import wavefront_binned as wb
+    from raytracer_tpu_torch.render import finalize_image
+    dev = torch.device("cuda")
+    probes = len(ops._BINNED_CAPS)
+    _zero_counts()
+    capped = ops.render_linear_fast(scene, cam, device=dev, seed=seed,
+                                    **API_SHAPE)
+    counts = _read_counts()
+    caps = _caps(ops, scene, 512, 288)
+    args, kw = _binned_args(ops, tables, scene, cam, dev)
+    whole = wb.render_linear_binned(*args, **API_SHAPE, seed=seed, **kw)
+    plain = wb.render_linear_binned(*args, **API_SHAPE, seed=seed, **kw,
+                                    bounce_caps=caps, plain=True)
+    log(f"  capped frame (caps {caps}): launches {counts}, new probe "
+        f"{len(ops._BINNED_CAPS) != probes}")
+    if counts != {"K1": 0, "K5": 0, "K3": 4, "K4": 0} \
+            or len(ops._BINNED_CAPS) != probes:
+        raise SystemExit(f"API capped frame: launches {counts}")
+    if not torch.equal(capped[0], whole[0]) or capped[1] != whole[1]:
+        raise SystemExit("API capped frame differs from the uncapped K3 "
+                         "frame")
+    if not np.array_equal(finalize_image(capped[0]).cpu().numpy(), fb):
+        raise SystemExit("API capped frame differs from the session's "
+                         "probe framebuffer")
+    if plain[2] != 0:
+        raise SystemExit(f"plain version under the caps dropped {plain[2]} "
+                         f"live rays")
+    log("  capped frame bitwise the uncapped K3 frame and the session's "
+        "framebuffer")
+    return compare_image("K3 capped frame vs plain version, same caps",
+                         capped, plain[:2])
+
+
+def phase_mesh_main_paths(rtt, scenes) -> dict:
+    from raytracer_tpu_torch import api, cli, image, ops
+    from raytracer_tpu_torch.models import obj as obj_mod
+    from raytracer_tpu_torch.render import finalize_image
+    dev = torch.device("cuda")
+    scene, cam = scenes["OBJ-10k"]
+    opts = rtt.Options(samples_per_pixel=4, max_ray_bounces=4)
+    session = api.RenderSession.from_world(scene, cam, 512, 288, opts,
+                                           device="cuda")
+    engine = session.resolved_engine()
+    log(f"\nmain path: RenderSession.from_world(OBJ-10k, 512, 288, spp 4, "
+        f"depth 4) resolves to {engine}")
+    if engine != "cuda_binned":
+        raise SystemExit(f"API session resolved to {engine}")
+    k3 = 0
+    for step in ("first frame", "frame after a camera move"):
+        probes = len(ops._BINNED_CAPS)
+        _zero_counts()
+        ms, fb = _sync_ms(session.frame)
+        counts = _read_counts()
+        k3 += counts["K3"]
+        new_probe = len(ops._BINNED_CAPS) == probes + 1
+        log(f"  {step}: {ms:.3f} ms, launches {counts}, a new probe "
+            f"{new_probe}")
+        if counts != {"K1": 0, "K5": 0, "K3": 4, "K4": 0} or not new_probe:
+            raise SystemExit(f"API session {step}: launches {counts}, new "
+                             f"probe {new_probe}")
+        if step == "first frame":
+            mean, _ = ops.render_linear_fast(
+                scene, cam, device=dev, seed=opts.seed, engine="cuda",
+                **dict(API_SHAPE, samples_per_pixel=4))
+            _lsb_check("API frame", fb, finalize_image(mean).cpu().numpy())
+            k3_err = _session_capped_frame(scene, cam, fb, opts.seed)
+            session.move_camera(0.05, 0.0, 0.0)
+
+    # the CLI's obj= on the OBJ-10k triangles, written out as an OBJ file
+    h = scene.numpy()
+    tris = [(tuple(h.tri_v0[i]), tuple(h.tri_v1[i]), tuple(h.tri_v2[i]),
+             int(h.tri_mat[i])) for i in np.nonzero(h.tri_valid)[0]]
+    args = ["width=512", "samples=16", "ray_depth=8"]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "obj10k.obj"
+        path.write_text(obj_mod.dump_obj(tris))
+        out = str(Path(tmp) / "image.ppm")
+        _zero_counts()
+        t0 = time.perf_counter()
+        rc = cli.main(args + [f"obj={path}", f"out={out}"])
+        dt = time.perf_counter() - t0
+        counts = _read_counts()
+        fb = image.read_ppm(out)
+        cli_scene = cli._obj_scene(str(path))
+    log(f"  cli.main({args + ['obj=<OBJ-10k>']}) rc={rc} in {dt:.3f}s, "
+        f"launches {counts}, framebuffer {fb.shape}")
+    if rc != 0 or counts != {"K1": 0, "K5": 0, "K3": 0, "K4": 16}:
+        raise SystemExit(f"CLI obj=: rc {rc}, launches {counts} (expected "
+                         f"16 K4 bands)")
+    import math
+    cli_cam = rtt.Camera.new_look_at((0.0, 0.0, 0.0), (0.0, 0.0, -1.0),
+                                     (0.0, 1.0, 0.0), math.pi / 2.0, 1.77778)
+    mean, _ = ops.render_linear_fast(
+        cli_scene, cli_cam, width=512, height=fb.shape[0],
+        samples_per_pixel=16, depth=8, device=dev, seed=rtt.rng.DEFAULT_SEED,
+        engine="cuda")
+    _lsb_check("CLI obj= frame", fb, finalize_image(mean).cpu().numpy())
+    # the CLI's frame again through K4 and through its plain version, at
+    # the CLI's own shape and bands
+    cli_kw = dict(width=512, height=fb.shape[0], samples_per_pixel=16,
+                  depth=8, device=dev, seed=rtt.rng.DEFAULT_SEED,
+                  progress=lambda *a: None)
+    k4 = ops.render_linear_fast(cli_scene, cli_cam, engine="cuda_stream",
+                                **cli_kw)
+    if not np.array_equal(finalize_image(k4[0]).cpu().numpy(), fb):
+        raise SystemExit("CLI obj=: the K4 frame is not the CLI's "
+                         "framebuffer")
+    plain_ms, p4 = _sync_ms(lambda: ops.render_linear_fast(
+        cli_scene, cli_cam, engine="torch_stream", **cli_kw))
+    k4_err = compare_image(f"K4 vs plain at the CLI's shape (512x"
+                           f"{fb.shape[0]}, 16 spp, depth 8, 16 bands)",
+                           k4, p4)
+    log(f"  K4's frame is the CLI's framebuffer; plain version "
+        f"{plain_ms:.3f} ms")
+    return dict(k3_launches=k3, k4_launches=counts["K4"], k3_err=k3_err,
+                k4_err=k4_err)
+
+
+class _Recorder:
+    """Records the arguments and result of every call of ``module.name``
+    while active (the driver looks the function up at each call)."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.calls = module, name, []
+
+    def __enter__(self):
+        self.real = getattr(self.module, self.name)
+
+        def record(*a, **k):
+            out = self.real(*a, **k)
+            self.calls.append((a, k, out))
+            return out
+        setattr(self.module, self.name, record)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+    def replay_ms(self, runs=10):
+        """Each recorded call's device time: CUDA events around ``runs``
+        back-to-back calls on its own inputs, so host time hides behind
+        the queue."""
+        out = []
+        for a, k, _ in self.calls:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            self.real(*a, **k)
+            start.record()
+            for _ in range(runs):
+                self.real(*a, **k)
+            end.record()
+            end.synchronize()
+            out.append(start.elapsed_time(end) / runs)
+        return out
+
+
+def _k3_frame_timed(args, kw, **extra):
+    """One K3 frame, then each of its passes and regroups again on the
+    same inputs, timed by CUDA events: (pass ms, regroup ms, result, bytes
+    the passes moved)."""
+    from raytracer_tpu_torch.ops.cuda import wavefront_binned as wb
+    with _Recorder(wb, "binned_pass_cuda") as passes, \
+            _Recorder(wb, "regroup") as regroups:
+        result = wb.render_linear_binned(*args, **kw, **extra)
+        pass_ms, regroup_ms = passes.replay_ms(), regroups.replay_ms()
+    moved = sum(nbytes(tuple(a[0]), a[1], a[2], out)
+                for a, _, out in passes.calls)
+    return pass_ms, regroup_ms, result, moved
+
+
+def phase_mesh_throughput(rtt, smi, scenes) -> dict:
+    from raytracer_tpu_torch import ops
+    from raytracer_tpu_torch.ops import tables
+    from raytracer_tpu_torch.ops.cuda import wavefront_binned as wb
+    from raytracer_tpu_torch.ops.cuda import wavefront_stream as ws
+    dev = torch.device("cuda")
+    log(f"\nmesh throughput on {smi}, {MESH_FULL}")
+    out = {}
+    for label, (scene, cam) in scenes.items():
+        def run(seed, engine="auto"):
+            return ops.render_linear_fast(scene, cam, device=dev, seed=seed,
+                                          engine=engine, **MESH_FULL)
+        sec, (_, segs) = _median_seconds(run)
+        bad = ops.flush_binned_overflow_checks()
+        k1_sec, (_, k1_segs) = _median_seconds(
+            lambda seed: run(seed, "cuda"))
+        log(f"  {label}: K3 frames {sec * 1e3:.3f} ms median, {segs} "
+            f"segments -> {segs / sec:.6e} rays/s; K1 {k1_sec * 1e3:.3f} "
+            f"ms -> {k1_segs / k1_sec:.6e} rays/s; overflowed frames {bad}")
+        if bad:
+            raise SystemExit(f"{label}: {bad} capped frames overflowed")
+        args, kw = _binned_args(ops, tables, scene, cam, dev)
+        caps = _caps(ops, scene, 512, 512)
+        pass_ms, regroup_ms, capped, _ = _k3_frame_timed(
+            args, dict(MESH_FULL, seed=1, **kw), bounce_caps=caps)
+        whole = wb.render_linear_binned(*args, **MESH_FULL, seed=1, **kw)
+        if capped[2] != 0 or not torch.equal(capped[0], whole[0]) \
+                or capped[1] != whole[1]:
+            raise SystemExit(f"{label}: the capped K3 frame (overflow "
+                             f"{capped[2]}) is not the uncapped one")
+        log(f"  {label}: capped K3 passes {[round(x, 3) for x in pass_ms]} "
+            f"ms, regroups {[round(x, 3) for x in regroup_ms]} ms (caps "
+            f"{caps} slots of {wb.tile_geometry(512, 512, 4)[4] * 128}); "
+            f"the capped frame is bitwise the uncapped one")
+        out[label] = dict(rays_per_s=segs / sec,
+                          k1_rays_per_s=k1_segs / k1_sec, pass_ms=pass_ms,
+                          regroup_ms=regroup_ms)
+
+    # K3 and K4 against their plain versions at the API's full-width frame,
+    # uncapped, with the kernels' times and bounds there
+    scene, cam = scenes["OBJ-10k"]
+    n_sph = scene.num_spheres
+    log(f"\nK3 and K4 vs plain versions, OBJ-10k {API_SHAPE}")
+    args, kw = _binned_args(ops, tables, scene, cam, dev)
+    pass_ms, regroup_ms, k3, moved = _k3_frame_timed(
+        args, dict(API_SHAPE, seed=1, **kw))
+    # the plain versions' rays, live lanes and final hits count the node
+    # and triangle tests of the bounds
+    from raytracer_tpu_torch.ops.cuda import wavefront as wfc
+    with _Recorder(wb, "binned_pass_ref") as passes, \
+            _Recorder(wfc, "sphere_hits") as hits:
+        plain3_ms, p3 = _sync_ms(lambda: wb.render_linear_binned(
+            *args, **API_SHAPE, seed=1, **kw, plain=True))
+    err3 = compare_image("K3 OBJ-10k 512x288", k3, p3)
+    walk3 = _k3_walk_ops(passes.calls, hits.calls)
+    del passes, hits
+    n_tops = args[5].shape[1]
+    sel = (-(-n_tops // wb.SUPER) if n_tops >= wb.SUPER_MIN_TOPS else n_tops)
+    b3 = bound(k3[1] * (n_sph * FLOPS_SPHERE + FLOPS_SHADE
+                        + sel * FLOPS_BOX) + walk3, moved)
+    log(f"  K3: passes {sum(pass_ms):.3f} ms "
+        f"({[round(x, 3) for x in pass_ms]}), regroups "
+        f"{sum(regroup_ms):.3f} ms, plain version {plain3_ms:.3f} ms; "
+        f"bound {b3[0]:.4f} ms by {b3[1]} ({moved} bytes, {walk3:.6e} "
+        f"operations of node and triangle tests), "
+        f"{100 * b3[0] / sum(pass_ms):.2f}% of the passes' time")
+    _, sargs, skw = ops._stream_call(scene, cam, dev, plain=False)
+    ms4 = _event_ms(lambda: ws.render_linear_stream_cuda(
+        *sargs, **API_SHAPE, seed=1, **skw))
+    k4 = ws.render_linear_stream_cuda(*sargs, **API_SHAPE, seed=1, **skw)
+    with _Recorder(wfc, "sphere_hits") as hits:
+        plain4_ms, p4 = _sync_ms(lambda: ws.render_linear_stream_ref(
+            *sargs, **API_SHAPE, seed=1, **skw))
+    err4 = compare_image("K4 OBJ-10k 512x288", k4, p4)
+    walk4 = _k4_walk_ops(hits.calls, sargs, API_SHAPE["width"])
+    del hits
+    b4 = bound(k4[1] * (n_sph * FLOPS_SPHERE + FLOPS_SHADE) + walk4,
+               nbytes(sargs, skw["top_order"], skw["top_keys"], k4[0]))
+    log(f"  K4: {ms4:.3f} ms (CUDA events, median of 5), plain version "
+        f"{plain4_ms:.3f} ms; bound {b4[0]:.4f} ms by {b4[1]} "
+        f"({walk4:.6e} operations of node and triangle tests), "
+        f"{100 * b4[0] / ms4:.2f}% of K4's time")
+    # K4 at the CLI's shape: the whole frame in one launch, and 16 bands
+    cli_shape = dict(width=512, height=287, samples_per_pixel=16, depth=8,
+                     seed=1)
+    cli_ms = _event_ms(lambda: ws.render_linear_stream_cuda(
+        *sargs, **cli_shape, **skw))
+    band_ms = _event_ms(lambda: [ws.render_linear_stream_cuda(
+        *sargs, **cli_shape, **skw, shard_rows=18, row_offset=r0)
+        for r0 in range(0, 287, 18)])
+    log(f"  K4 at the CLI's shape {cli_shape}: one launch {cli_ms:.3f} ms, "
+        f"16 bands {band_ms:.3f} ms")
+    out.update(k3=dict(ms=sum(pass_ms), plain_ms=plain3_ms, err=err3,
+                       bound=b3),
+               k4=dict(ms=ms4, plain_ms=plain4_ms, err=err4, bound=b4))
+    return out
 
 
 def main() -> int:
     smi = phase_device()
     rtt = import_port()
     phase_build()
+    scenes = mesh_scenes(rtt)
     max_err = phase_kernel_vs_plain(rtt)
     k5_err = phase_grad_vs_plain(rtt)
+    mesh = phase_mesh_vs_plain(rtt, scenes)
     launches = phase_main_path(rtt)
     train = phase_train(rtt)
+    mesh_main = phase_mesh_main_paths(rtt, scenes)
     perf = phase_throughput(rtt, smi)
     gperf = phase_grad_throughput(rtt, smi)
+    mperf = phase_mesh_throughput(rtt, smi, scenes)
     head = perf["default world 512x512 64spp depth 8"]
     print(json.dumps({"kernels": [{
         "name": "wavefront_render (K1)", "route": "cuda",
@@ -590,13 +1212,35 @@ def main() -> int:
         "replaces": "raytracer_tpu/ops/pallas/wavefront.py:1032",
         "launches": launches + train["k1_launches"],
         "max_abs_err": max(max_err, gperf["k1_err"]),
-        "ms": head["ms"], "plain_ms": head["plain_ms"]}, {
+        "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound"][0], "bound_by": head["bound"][1],
+        "library_ms": None}, {
         "name": "wavefront_grad (K5)", "route": "cuda",
         "source": "raytracer_tpu_torch/csrc/wavefront_bwd.cu",
         "replaces": "raytracer_tpu/ops/pallas/wavefront_bwd.py:964",
         "launches": train["k5_launches"],
         "max_abs_err": max(k5_err, gperf["k5_err"]),
-        "ms": gperf["ms"], "plain_ms": gperf["plain_ms"]}]}))
+        "ms": gperf["ms"], "plain_ms": gperf["plain_ms"],
+        "bound_ms": gperf["bound"][0], "bound_by": gperf["bound"][1],
+        "library_ms": None}, {
+        "name": "binned_pass (K3)", "route": "cuda",
+        "source": "raytracer_tpu_torch/csrc/wavefront_binned.cu",
+        "replaces": "raytracer_tpu/ops/pallas/wavefront_binned.py:818",
+        "launches": mesh_main["k3_launches"],
+        "max_abs_err": max(mesh["worst"]["K3"], mperf["k3"]["err"],
+                           mesh_main["k3_err"]),
+        "ms": mperf["k3"]["ms"], "plain_ms": mperf["k3"]["plain_ms"],
+        "bound_ms": mperf["k3"]["bound"][0],
+        "bound_by": mperf["k3"]["bound"][1], "library_ms": None}, {
+        "name": "stream_render (K4)", "route": "cuda",
+        "source": "raytracer_tpu_torch/csrc/wavefront_stream.cu",
+        "replaces": "raytracer_tpu/ops/pallas/wavefront_stream.py:397",
+        "launches": mesh_main["k4_launches"],
+        "max_abs_err": max(mesh["worst"]["K4"], mperf["k4"]["err"],
+                           mesh_main["k4_err"]),
+        "ms": mperf["k4"]["ms"], "plain_ms": mperf["k4"]["plain_ms"],
+        "bound_ms": mperf["k4"]["bound"][0],
+        "bound_by": mperf["k4"]["bound"][1], "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -102,6 +102,18 @@ class RenderSession:
                    progressive=progressive, max_samples=max_samples,
                    handle=WorldHandle(scene=scene, camera=camera))
 
+    def resolved_engine(self) -> str:
+        """The engine ``ops.resolve_dispatch`` picks for this session's
+        frames (its scene, device, spp and shape), so a caller can see that
+        an OBJ-scale scene takes the binned engine."""
+        from . import ops
+        engine, _ = ops.resolve_dispatch(
+            self.handle.scene, self.options.parity_plane_sign,
+            self.options.engine, self.options.device,
+            samples_per_pixel=self.options.samples_per_pixel,
+            width=self.width, height=self.height)
+        return engine
+
     @property
     def samples_accumulated(self) -> int:
         """spp the current frame represents."""

@@ -6,11 +6,14 @@ arguments abort, the scene's parsed camera is replaced by a look-at camera
 (origin (0,0,0) -> (0,0,-1), up Y, vfov pi/2, aspect 1.77778), width 400,
 height = width / aspect, output ``image.ppm``.
 
-Extensions: ``scene=PATH``, ``width=N``, ``out=PATH`` (.ppm or .png),
-``seed=N``, ``use_scene_camera=1`` and ``device=cuda|cpu`` (default cuda:
-the CUDA kernel; without a GPU the CLI exits with an error rather than
-render on the CPU).  ``parity=1`` and ``obj=PATH`` are not ported yet and
-exit with a message.
+Extensions: ``scene=PATH``, ``obj=PATH`` (an OBJ mesh framed into the
+view over a ground sphere, correct plane equation: meshes of at least
+``ops.BINNED_MIN_TRIS`` triangles render through the streamed kernel K4,
+one launch per row band of the scanline logger), ``width=N``, ``out=PATH``
+(.ppm or .png), ``seed=N``, ``use_scene_camera=1`` and
+``device=cuda|cpu`` (default cuda: the CUDA kernels; without a GPU the CLI
+exits with an error rather than render on the CPU).  ``parity=1`` is not
+ported yet and exits with a message.
 """
 
 from __future__ import annotations
@@ -25,7 +28,9 @@ from . import parser as parser_mod
 from .camera import Camera
 from .image import write_png, write_ppm
 from .models import default_world_source
+from .models import obj as obj_mod
 from .render import Options, ray_trace
+from .scene import DIFFUSE, build_materials, build_scene
 
 __all__ = ["get_arguments", "main"]
 
@@ -37,8 +42,6 @@ _NOT_PORTED = {
     "parity": "parity=1 is not ported yet: the sequential parity renderer "
               "(render.render_parity) is the 'parity renderer' item of "
               "ROADMAP.md's modules still to port",
-    "obj": "obj= is not ported yet: the OBJ loader (models/obj.py) is the "
-           "'models/obj.py' item of ROADMAP.md's modules still to port",
 }
 
 
@@ -65,6 +68,24 @@ def get_arguments(argv):
     return samples_per_pixel, max_ray_bounces, extras
 
 
+def _obj_scene(path: str):
+    """An OBJ mesh framed into the CLI camera's view: scaled to 0.9 across
+    its widest extent, centred at z = -1.5 over a ground sphere, with the
+    correct plane equation (OBJ scenes make no reference-parity claim)."""
+    with open(path) as f:
+        src = f.read()
+    lo, hi = obj_mod.obj_bounds(obj_mod.parse_obj(src, 0))
+    extent = float(max(max(h - l for h, l in zip(hi, lo)), 1e-6))
+    s = 0.9 / extent
+    c = [(h + l) * 0.5 * s for h, l in zip(hi, lo)]
+    tris = obj_mod.parse_obj(src, 0, scale=s,
+                             translate=(-c[0], -c[1] + 0.05, -c[2] - 1.5))
+    mats = build_materials([(DIFFUSE, (0.75, 0.45, 0.3), 0.0, 1.0),
+                            (DIFFUSE, (0.8, 0.8, 0.0), 0.0, 1.0)])
+    return build_scene([((0.0, -100.5, -1.0), 100.0, 1)], tris, mats,
+                       exact_planes=True)
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     samples, depth, extras = get_arguments(argv)
@@ -81,13 +102,17 @@ def main(argv=None) -> int:
     print(f"Using:\n* Samples per pixel: {samples}\n* Max ray depth: {depth}",
           file=sys.stderr)
 
-    if "scene" in extras:
-        world = parser_mod.parse_world(extras["scene"])
+    if "obj" in extras:
+        scene = _obj_scene(extras["obj"])
+        world = None
     else:
-        world = parser_mod.parse_input(default_world_source())
-    scene = world.to_scene()
+        if "scene" in extras:
+            world = parser_mod.parse_world(extras["scene"])
+        else:
+            world = parser_mod.parse_input(default_world_source())
+        scene = world.to_scene()
 
-    if extras.get("use_scene_camera"):
+    if world is not None and extras.get("use_scene_camera"):
         camera = world.to_camera()
         aspect = float(camera.aspect_ratio())
     else:

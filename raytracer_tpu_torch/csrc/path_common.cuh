@@ -1,14 +1,17 @@
-// Per-ray device code shared by K1 (wavefront.cu) and K5 (wavefront_bwd.cu).
+// Per-ray device code shared by the path-tracing kernels: K1
+// (wavefront.cu), K5 (wavefront_bwd.cu), K4 (wavefront_stream.cu) and K3
+// (wavefront_binned.cu).
 //
-// K5 re-traces K1's paths before it sweeps them backward, so both kernels
-// must take the same hit, draw the same random numbers and scatter the same
-// way for every lane: the gradient of a path K1 did not trace belongs to
-// another image.  Everything that decides a path therefore lives here once:
-// the table layouts, the constants (written as the hex of their float32
-// values), pcg3d, the cluster slab test, the sphere and triangle steps with
-// their tie rules (spheres need a strictly smaller t, triangles win ties),
-// the unit-sphere draw and the material scatter.  Both files are built with
-// -fmad=false, so each expression rounds as written.
+// K5 re-traces K1's paths before it sweeps them backward, and K3 and K4
+// must trace the paths K1 traces, so every kernel takes the same hit, draws
+// the same random numbers and scatters the same way for every lane.
+// Everything that decides a path therefore lives here once: the table
+// layouts, the constants (written as the hex of their float32 values),
+// pcg3d, the cluster slab test and the bounding-sphere test, the sphere and
+// triangle steps with their tie rules (spheres need a strictly smaller t,
+// triangles win ties), the sphere stage, the normal fix-ups, the
+// unit-sphere draw, the material scatter and the bounce bookkeeping.  All
+// files are built with -fmad=false, so each expression rounds as written.
 
 #pragma once
 
@@ -107,6 +110,38 @@ __device__ __forceinline__ bool aabb_test(const float *__restrict__ b, int nc,
   const float tfar = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)),
                            fmaxf(tz0, tz1));
   return (tnear <= tfar) && (tfar > T_MIN) && (tnear <= t_best);
+}
+
+// _bound_test: could this ray hit something inside bounding sphere ci
+// (columns [cx, cy, cz, r^2]) no farther than t_best?
+__device__ __forceinline__ bool bound_test(const float *__restrict__ b, int nc,
+                                           int ci, const Ray &r,
+                                           float t_best) {
+  const float ocx = r.ox - b[0 * nc + ci];
+  const float ocy = r.oy - b[1 * nc + ci];
+  const float ocz = r.oz - b[2 * nc + ci];
+  const float hb = ocx * r.dx + ocy * r.dy + ocz * r.dz;
+  const float cc = ocx * ocx + ocy * ocy + ocz * ocz - b[3 * nc + ci];
+  const float disc = hb * hb - cc;
+  const float sq = sqrtf(fmaxf(disc, 0.0f));
+  const float entry = fmaxf(-hb - sq, 0.0f);
+  return (disc >= 0.0f) && (-hb + sq > T_MIN) && (entry <= t_best);
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(FULL_MASK, v, off));
+  return v;
+}
+
+// butterfly sum: lane i adds lane i ^ off, so every lane ends with the
+// same float (the plain versions repeat this order)
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v = v + __shfl_xor_sync(FULL_MASK, v, off);
+  return v;
 }
 
 // one step of _sphere_loop's body; the normal slots carry the centre
@@ -223,6 +258,82 @@ __device__ __forceinline__ void triangle_hits(
   }
 }
 
+// the camera ray through (u, v): cam is [origin, lower-left corner,
+// horizontal, vertical]
+__device__ __forceinline__ Ray camera_ray(const float *__restrict__ cam,
+                                          float u, float v) {
+  Ray r;
+  r.dx = cam[3] + u * cam[6] + v * cam[9] - cam[0];
+  r.dy = cam[4] + u * cam[7] + v * cam[10] - cam[1];
+  r.dz = cam[5] + u * cam[8] + v * cam[11] - cam[2];
+  const float dlen = sqrtf(r.dx * r.dx + r.dy * r.dy + r.dz * r.dz);
+  r.dx = r.dx / dlen;
+  r.dy = r.dy / dlen;
+  r.dz = r.dz / dlen;
+  r.ox = cam[0];
+  r.oy = cam[1];
+  r.oz = cam[2];
+  return r;
+}
+
+// a fresh closest-hit record (no primitive yet)
+__device__ __forceinline__ Hit no_hit() {
+  Hit h = {BIG, 0.0f, 0.0f, 1.0f, 0.0f, 0.0f,
+           0.0f, 0.0f, 0.0f, 1.0f, -1.0f, 1.0f};
+  return h;
+}
+
+// closest sphere hit (common.rs:60-98): the flat table, or culled warp by
+// warp through cluster AABBs; then _sphere_normals: normalize(p - c),
+// flipped for r < 0.  Loop bounds are warp-uniform.
+__device__ __forceinline__ void sphere_hits(const float *__restrict__ sph,
+                                            int n_sph,
+                                            const float *__restrict__ sphc_b,
+                                            const int *__restrict__ sphc_r,
+                                            int n_sphc, const Ray &r,
+                                            bool alive, Hit &h) {
+  if (n_sphc > 0) {
+    const float ivx = inv_dir(r.dx), ivy = inv_dir(r.dy), ivz = inv_dir(r.dz);
+    for (int ci = 0; ci < n_sphc; ++ci) {
+      const bool possible =
+          alive && aabb_test(sphc_b, n_sphc, ci, r, ivx, ivy, ivz, h.t);
+      if (__any_sync(FULL_MASK, possible)) {
+        const int s1 = sphc_r[n_sphc + ci];
+        for (int si = sphc_r[ci]; si < s1; ++si)
+          sphere_step<false>(sph, n_sph, si, r, h);
+      }
+    }
+  } else {
+    for (int si = 0; si < n_sph; ++si) sphere_step<false>(sph, n_sph, si, r, h);
+  }
+  const float hpx = r.ox + h.t * r.dx;
+  const float hpy = r.oy + h.t * r.dy;
+  const float hpz = r.oz + h.t * r.dz;
+  const float snx = hpx - h.nx;
+  const float sny = hpy - h.ny;
+  const float snz = hpz - h.nz;
+  float slen = sqrtf(snx * snx + sny * sny + snz * snz);
+  slen = slen == 0.0f ? 1.0f : slen;
+  const bool neg_r = h.kind >= 3.5f;
+  slen = neg_r ? -slen : slen;
+  h.kind = neg_r ? h.kind - 4.0f : h.kind;
+  h.nx = snx / slen;
+  h.ny = sny / slen;
+  h.nz = snz / slen;
+}
+
+// _resolve_tri_normals: a triangle winner carries its raw plane normal and
+// kind + 8; normalise the one and strip the other
+__device__ __forceinline__ void resolve_tri_normals(Hit &h) {
+  const bool is_tri = h.kind >= 7.5f;
+  float ln = sqrtf(h.nx * h.nx + h.ny * h.ny + h.nz * h.nz);
+  ln = ln == 0.0f ? 1.0f : ln;
+  h.nx = is_tri ? h.nx / ln : h.nx;
+  h.ny = is_tri ? h.ny / ln : h.ny;
+  h.nz = is_tri ? h.nz / ln : h.nz;
+  h.kind = is_tri ? h.kind - 8.0f : h.kind;
+}
+
 // MaterialType::scatter at a hit with unit normal n and material (kind
 // 0..3, albedo, fuzz, ir), for draw (rx, ry, rz): the next direction, the
 // colour the throughput takes and whether the path ends here
@@ -298,6 +409,48 @@ __device__ __forceinline__ Scatter scatter(const Ray &r, float nx, float ny,
   out.dz = is_dif ? difz : (is_met ? metz : (is_die ? diez : nz));
   out.term = is_emi || (is_met && !met_keep);
   return out;
+}
+
+// throughput and radiance of one path
+struct PathColor {
+  float tpr, tpg, tpb, rr, rg, rb;
+};
+
+// _scatter_bookkeep after the closest hit h (normals resolved): the draw at
+// site 1 + b of sample s, the scatter, and the bounce bookkeeping
+// (common.rs:263-285).  Moves r to the scattered ray when the path goes
+// on; returns whether it does.
+__device__ __forceinline__ bool shade(unsigned pix_u, int s, int b, Ray &r,
+                                      const Hit &h, bool alive, PathColor &c) {
+  const bool hit = h.t < BIG;
+  const float hpx = hit ? r.ox + h.t * r.dx : r.ox;
+  const float hpy = hit ? r.oy + h.t * r.dy : r.oy;
+  const float hpz = hit ? r.oz + h.t * r.dz : r.oz;
+  float rx, ry, rz;
+  unit_sphere_draw(pix_u, s, b, rx, ry, rz);
+  const Scatter sc = scatter(r, h.nx, h.ny, h.nz, h.kind, h.ar, h.ag, h.ab,
+                             h.fz, h.ir, rx, ry, rz);
+  const bool miss = alive && !hit;
+  const bool terminal = alive && hit && sc.term;
+  const bool cont = alive && hit && !sc.term;
+  const float tsky = 0.5f * (r.dy + 1.0f);
+  const float skyr = 1.0f - tsky * 0.5f;
+  const float skyg = 1.0f - tsky * SKY_G;
+  c.rr = c.rr + (miss ? c.tpr * skyr : (terminal ? c.tpr * sc.cr : 0.0f));
+  c.rg = c.rg + (miss ? c.tpg * skyg : (terminal ? c.tpg * sc.cg : 0.0f));
+  c.rb = c.rb + (miss ? c.tpb * 1.0f : (terminal ? c.tpb * sc.cb : 0.0f));
+  if (cont) {
+    c.tpr = c.tpr * sc.cr;
+    c.tpg = c.tpg * sc.cg;
+    c.tpb = c.tpb * sc.cb;
+    r.ox = hpx;
+    r.oy = hpy;
+    r.oz = hpz;
+    r.dx = sc.dx;
+    r.dy = sc.dy;
+    r.dz = sc.dz;
+  }
+  return cont;
 }
 
 }  // namespace rt_path

@@ -83,131 +83,32 @@ __global__ void __launch_bounds__(THREADS)
 
   const float *__restrict__ sph = p.sph;
   const float *__restrict__ tri = p.tri;
-  const float ox0 = p.cam[0], oy0 = p.cam[1], oz0 = p.cam[2];
-  const float llcx = p.cam[3], llcy = p.cam[4], llcz = p.cam[5];
-  const float hx = p.cam[6], hy = p.cam[7], hz = p.cam[8];
-  const float vx = p.cam[9], vy = p.cam[10], vz = p.cam[11];
-
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
   int seg = 0;
 
   for (int s = 0; s < p.spp; ++s) {
     unsigned ju = pix_u, jv = (unsigned)s, jw = 0u;
     pcg3d(ju, jv, jw);
-    const float u = (pcol_f + u01(ju)) / w1;
-    const float v = (prow_f + u01(jv)) / h1;
-    Ray r;
-    r.dx = llcx + u * hx + v * vx - ox0;
-    r.dy = llcy + u * hy + v * vy - oy0;
-    r.dz = llcz + u * hz + v * vz - oz0;
-    const float dlen = sqrtf(r.dx * r.dx + r.dy * r.dy + r.dz * r.dz);
-    r.dx = r.dx / dlen;
-    r.dy = r.dy / dlen;
-    r.dz = r.dz / dlen;
-    r.ox = ox0;
-    r.oy = oy0;
-    r.oz = oz0;
+    Ray r = camera_ray(p.cam, (pcol_f + u01(ju)) / w1,
+                       (prow_f + u01(jv)) / h1);
 
-    float tpr = 1.0f, tpg = 1.0f, tpb = 1.0f;
-    float rr = 0.0f, rg = 0.0f, rb = 0.0f;
+    PathColor c = {1.0f, 1.0f, 1.0f, 0.0f, 0.0f, 0.0f};
     bool alive = active0;
 
     for (int b = 0; b < p.depth; ++b) {
       if (!__any_sync(FULL_MASK, alive)) break;  // warp-uniform early exit
       seg += alive ? 1 : 0;
-
-      Hit h = {BIG,  0.0f, 0.0f, 1.0f, 0.0f, 0.0f,
-               0.0f, 0.0f, 0.0f, 1.0f, -1.0f, 1.0f};
-
-      // ---- spheres (common.rs:60-98) ----
-      if (p.n_sphc > 0) {
-        const float ivx = inv_dir(r.dx), ivy = inv_dir(r.dy),
-                    ivz = inv_dir(r.dz);
-        for (int ci = 0; ci < p.n_sphc; ++ci) {
-          const bool possible =
-              alive && aabb_test(p.sphc_b, p.n_sphc, ci, r, ivx, ivy, ivz, h.t);
-          if (__any_sync(FULL_MASK, possible)) {
-            const int s1 = p.sphc_r[p.n_sphc + ci];
-            for (int si = p.sphc_r[ci]; si < s1; ++si)
-              sphere_step<false>(sph, p.n_sph, si, r, h);
-          }
-        }
-      } else {
-        for (int si = 0; si < p.n_sph; ++si)
-          sphere_step<false>(sph, p.n_sph, si, r, h);
-      }
-
-      // ---- _sphere_normals: normalize(p - c), flipped for r < 0 ----
-      {
-        const float hpx = r.ox + h.t * r.dx;
-        const float hpy = r.oy + h.t * r.dy;
-        const float hpz = r.oz + h.t * r.dz;
-        const float snx = hpx - h.nx;
-        const float sny = hpy - h.ny;
-        const float snz = hpz - h.nz;
-        float slen = sqrtf(snx * snx + sny * sny + snz * snz);
-        slen = slen == 0.0f ? 1.0f : slen;
-        const bool neg_r = h.kind >= 3.5f;
-        slen = neg_r ? -slen : slen;
-        h.kind = neg_r ? h.kind - 4.0f : h.kind;
-        h.nx = snx / slen;
-        h.ny = sny / slen;
-        h.nz = snz / slen;
-      }
-
-      // ---- triangles (common.rs:124-166 via edge constants) ----
+      Hit h = no_hit();
+      sphere_hits(sph, p.n_sph, p.sphc_b, p.sphc_r, p.n_sphc, r, alive, h);
+      // triangles (common.rs:124-166 via edge constants)
       triangle_hits<PARITY, false>(tri, p.n_tri, p.tric_b, p.tric_r, p.n_tric,
                                    p.n_sph, r, alive, h);
-
-      // ---- _resolve_tri_normals ----
-      {
-        const bool is_tri = h.kind >= 7.5f;
-        float ln = sqrtf(h.nx * h.nx + h.ny * h.ny + h.nz * h.nz);
-        ln = ln == 0.0f ? 1.0f : ln;
-        h.nx = is_tri ? h.nx / ln : h.nx;
-        h.ny = is_tri ? h.ny / ln : h.ny;
-        h.nz = is_tri ? h.nz / ln : h.nz;
-        h.kind = is_tri ? h.kind - 8.0f : h.kind;
-      }
-      const bool hit = h.t < BIG;
-      const float hpx = hit ? r.ox + h.t * r.dx : r.ox;
-      const float hpy = hit ? r.oy + h.t * r.dy : r.oy;
-      const float hpz = hit ? r.oz + h.t * r.dz : r.oz;
-
-      // ---- _scatter_bookkeep: draw at site 1+b, scatter, bookkeeping ----
-      float rx, ry, rz;
-      unit_sphere_draw(pix_u, s, b, rx, ry, rz);
-      const Scatter sc = scatter(r, h.nx, h.ny, h.nz, h.kind, h.ar, h.ag, h.ab,
-                                 h.fz, h.ir, rx, ry, rz);
-      const float scr = sc.cr, scg = sc.cg, scb = sc.cb;
-      const bool term = sc.term;
-
-      // bounce bookkeeping (common.rs:263-285)
-      const bool miss = alive && !hit;
-      const bool terminal = alive && hit && term;
-      const bool cont = alive && hit && !term;
-      const float tsky = 0.5f * (r.dy + 1.0f);
-      const float skyr = 1.0f - tsky * 0.5f;
-      const float skyg = 1.0f - tsky * SKY_G;
-      rr = rr + (miss ? tpr * skyr : (terminal ? tpr * scr : 0.0f));
-      rg = rg + (miss ? tpg * skyg : (terminal ? tpg * scg : 0.0f));
-      rb = rb + (miss ? tpb * 1.0f : (terminal ? tpb * scb : 0.0f));
-      if (cont) {
-        tpr = tpr * scr;
-        tpg = tpg * scg;
-        tpb = tpb * scb;
-        r.ox = hpx;
-        r.oy = hpy;
-        r.oz = hpz;
-        r.dx = sc.dx;
-        r.dy = sc.dy;
-        r.dz = sc.dz;
-      }
-      alive = cont;
+      resolve_tri_normals(h);
+      alive = shade(pix_u, s, b, r, h, alive, c);
     }
-    acc_r = acc_r + rr;
-    acc_g = acc_g + rg;
-    acc_b = acc_b + rb;
+    acc_r = acc_r + c.rr;
+    acc_g = acc_g + c.rg;
+    acc_b = acc_b + c.rb;
   }
 
   if (band_row < p.shard_rows && pcol < p.width) {

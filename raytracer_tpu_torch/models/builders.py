@@ -2,8 +2,8 @@
 
 Same scenes, same numpy arithmetic and the same numpy random streams as the
 JAX package's builders, producing the port's tensor ``Scene``/``Camera`` on
-the ``device`` each builder is given.  ``obj_mesh_scene`` waits for the port
-of ``models/obj.py``.
+the ``device`` each builder is given.  ``obj_mesh_scene`` loads its meshes
+through the port's ``models/obj.py``.
 
 ``default_world_source`` is the reference's bundled scene DSL
 (``/root/reference/raytracer/src/world.txt``) reproduced as data (it is the
@@ -249,6 +249,39 @@ def mesh_scene(subdivisions: int = 3, device="cpu") -> Tuple[Scene, Camera]:
     tris += cube_mesh((-1.1, -0.1, -1.4), 0.25, 2)
     spheres = [((0.0, -100.5, -1.0), 100.0, 1)]
     # procedural mesh: no reference-parity claim -> correct plane equation
+    scene = build_scene(spheres, tris, build_materials(mats, device),
+                        exact_planes=True)
+    cam = Camera.new_at((0.0, 0.0, 0.0), 1.77778, device=device)
+    return scene, cam
+
+
+def obj_mesh_scene(n_target_tris: int = 10240, device="cpu"
+                   ) -> Tuple[Scene, Camera]:
+    """~10k-triangle OBJ scene (BASELINE.json config 3 at its stated scale:
+    "low-poly OBJ, ~10k tris").
+
+    Two subdivision-4 icospheres (5120 triangles each) round-tripped
+    through the OBJ text format, so the scene exercises ``models.obj`` end
+    to end rather than feeding procedural arrays straight in.
+    """
+    from . import obj as obj_mod
+
+    mats = [
+        (DIFFUSE, (0.7, 0.3, 0.3), 0.0, 1.0),
+        (DIFFUSE, (0.8, 0.8, 0.0), 0.0, 1.0),
+        (METAL, (0.85, 0.85, 0.9), 0.05, 1.0),
+    ]
+    # a unit icosphere asset, serialized to OBJ once and instanced twice
+    unit = icosphere_mesh((0.0, 0.0, 0.0), 1.0, 0, 4)
+    asset = obj_mod.dump_obj(unit)
+    tris = obj_mod.parse_obj(asset, 0, scale=0.45,
+                             translate=(-0.6, 0.0, -1.4))
+    tris += obj_mod.parse_obj(asset, 2, scale=0.45,
+                              translate=(0.6, 0.0, -1.4))
+    if len(tris) > n_target_tris:
+        raise ValueError(f"{len(tris)} triangles exceed {n_target_tris}")
+    spheres = [((0.0, -100.5, -1.0), 100.0, 1)]
+    # OBJ-loaded mesh: no reference-parity claim -> correct plane equation
     scene = build_scene(spheres, tris, build_materials(mats, device),
                         exact_planes=True)
     cam = Camera.new_at((0.0, 0.0, 0.0), 1.77778, device=device)

@@ -118,4 +118,24 @@ def load() -> ctypes.CDLL:
                    i, i, u, i, i, i,     # width .. shard_rows
                    i, i, f, i, p]        # spp, depth, inv_spp, parity, stream
     fn.restype = ctypes.c_int
+    fn = lib.rt_stream_render
+    fn.argtypes = [p, i, p, p, i,        # sph, n_sph, sphere clusters
+                   p, p, p, i,           # tri, leaf bounds / counts, n_leaves
+                   p, p, p, p, i,        # top bounds / ranges / order / keys
+                   p, p, p, p,           # root, cam, mean, segs
+                   i, i, u, i, i, i,     # width .. shard_rows
+                   i, i, f, p]           # spp, depth, inv_spp, stream
+    fn.restype = ctypes.c_int
+    fn = lib.rt_binned_pass
+    fn.argtypes = [p, i, p, p, i,        # sph, n_sph, sphere clusters
+                   p, p, i, p, i,        # tri, subn, n_subs, topr, n_tops
+                   p, p, p,              # camera order, keys, run bounds
+                   p, i, p, p, p,        # reference points, orders, keys, runs
+                   p, p, p,              # root, key box
+                   p, p, p, p, p, i,     # sub / grp / top / super AABBs
+                   p, p, p, p, i,        # cam, state in / out, keys, n
+                   i, i, u, i, i,        # width .. samp_off
+                   i, i, i, i,           # spp, tw, th, ntx
+                   i, i, i, i, p]        # primary .. use_super, stream
+    fn.restype = ctypes.c_int
     return lib

@@ -52,6 +52,43 @@ TINY = float(np.float32(1e-20))
 SKY_G = float(np.float32(0.3))
 
 
+def check_tensor(t, name, dtype, shape, device):
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor on ``device``
+    whose shape matches ``shape`` (None: any extent)."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a tensor, got {type(t)}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.dim() != len(shape) or any(
+            want is not None and got != want
+            for got, want in zip(t.shape, shape)):
+        raise ValueError(f"{name} must have shape {shape}, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def check_sphere_tables(sph, sph_clusters, device):
+    """The sphere table and its optional clusters (bounds, ranges)."""
+    check_tensor(sph, "sph", _F32, (tables.SPH_ROWS, None), device)
+    if sph.shape[1] < 1:
+        raise ValueError("tables need at least one (padding) column")
+    check_clusters("sph_clusters", sph_clusters, sph.shape[1], device)
+
+
+def check_clusters(name, cl, n, device):
+    if cl is None:
+        return
+    bounds, ranges = cl
+    check_tensor(bounds, f"{name} bounds", _F32, (6, None), device)
+    check_tensor(ranges, f"{name} ranges", torch.int32, (2, bounds.shape[1]),
+                 device)
+    if ranges.numel() and (int(ranges.min()) < 0 or int(ranges.max()) > n):
+        raise ValueError(f"{name} ranges fall outside the table")
+
+
 def _check_inputs(sph, tri, cam_vec, sph_clusters, tri_clusters, *, width,
                   height, samples_per_pixel, depth, parity_plane_sign,
                   shard_rows, row_offset, row_stride) -> int:
@@ -61,37 +98,22 @@ def _check_inputs(sph, tri, cam_vec, sph_clusters, tri_clusters, *, width,
             "tri_clusters culling is unsound with parity_plane_sign=True "
             "(bounce-ray hits escape vertex-derived bounds)")
     device = sph.device
-
-    def check(t, name, dtype, shape):
-        if not isinstance(t, torch.Tensor):
-            raise TypeError(f"{name} must be a tensor, got {type(t)}")
-        if t.device != device:
-            raise ValueError(f"{name} is on {t.device}, sph on {device}")
-        if t.dtype != dtype:
-            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-        if t.dim() != len(shape) or any(
-                want is not None and got != want
-                for got, want in zip(t.shape, shape)):
-            raise ValueError(f"{name} must have shape {shape}, got "
-                             f"{tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-
-    check(sph, "sph", _F32, (tables.SPH_ROWS, None))
-    check(tri, "tri", _F32, (tables.TRI_ROWS, None))
-    check(cam_vec, "cam_vec", _F32, (12,))
-    for name, cl, n in (("sph_clusters", sph_clusters, sph.shape[1]),
-                        ("tri_clusters", tri_clusters, tri.shape[1])):
-        if cl is None:
-            continue
-        bounds, ranges = cl
-        check(bounds, f"{name} bounds", _F32, (6, None))
-        check(ranges, f"{name} ranges", torch.int32, (2, bounds.shape[1]))
-        if ranges.numel() and (int(ranges.min()) < 0
-                               or int(ranges.max()) > n):
-            raise ValueError(f"{name} ranges fall outside the table")
-    if sph.shape[1] < 1 or tri.shape[1] < 1:
+    check_sphere_tables(sph, sph_clusters, device)
+    check_tensor(tri, "tri", _F32, (tables.TRI_ROWS, None), device)
+    check_tensor(cam_vec, "cam_vec", _F32, (12,), device)
+    check_clusters("tri_clusters", tri_clusters, tri.shape[1], device)
+    if tri.shape[1] < 1:
         raise ValueError("tables need at least one (padding) column")
+    return check_shape(width=width, height=height,
+                       samples_per_pixel=samples_per_pixel, depth=depth,
+                       shard_rows=shard_rows, row_offset=row_offset,
+                       row_stride=row_stride)
+
+
+def check_shape(*, width, height, samples_per_pixel, depth, shard_rows,
+                row_offset, row_stride) -> int:
+    """Raise on a render shape the fused kernels cannot take; return
+    shard_rows."""
     shard_rows = height if shard_rows is None else shard_rows
     if min(width, height, samples_per_pixel, shard_rows, row_stride) < 1 \
             or depth < 0 or row_offset < 0:
@@ -258,6 +280,60 @@ def _closest_hit(table_h, clusters_h, step, ray, h, alive):
             step(table_h[i], ray, h, possible)
 
 
+def tri_block_hits(tri, cols, ray, h, rank, rank_base, sel):
+    """Closest triangle hit over the columns ``cols`` of a leaf-aligned
+    table ``tri`` (correct plane sign) for the rays ``sel``, all columns at
+    once, taken as the kernels' sequential scan with ``t <= t_best`` takes
+    it: the least t, and among equal t the column visited last.  The
+    visit rank of ``cols[j]`` for ray i is ``rank_base[i] + j`` (an int or
+    one per ray of ``sel``); ``rank`` holds each ray's winner's rank (-1
+    for a sphere or none), so a triangle beats a sphere at equal t.
+    Updates ``h`` and ``rank`` in place, in chunks of rays that keep each
+    temporary near 4M elements; every operation rounds as in
+    ``tri_step``."""
+    T = tri[:, cols]
+    step = max(1, (1 << 22) // max(cols.shape[0], 1))
+    for i in range(0, sel.shape[0], step):
+        base = (rank_base[i:i + step] if isinstance(rank_base, torch.Tensor)
+                else rank_base)
+        _tri_block(tri, T, cols, ray, h, rank, base, sel[i:i + step])
+
+
+def _tri_block(tri, T, cols, ray, h, rank, rank_base, sel):
+    ox, oy, oz, dx, dy, dz = (r[sel][:, None] for r in ray)
+    tnx, tny, tnz, td = (T[k][None, :] for k in range(4))
+    nd = tnx * dx + tny * dy + tnz * dz
+    no = tnx * ox + tny * oy + tnz * oz
+    par = nd.abs() < EPS8
+    nd_safe = torch.where(par, 1.0, nd)
+    t = (td - no) / nd_safe
+    ok = ~par & (t >= T_MIN)
+    for k in range(3):
+        gx, gy, gz, w = (T[4 + 4 * k + q][None, :] for q in range(4))
+        e = ox * gx + oy * gy + oz * gz + t * (dx * gx + dy * gy + dz * gz) - w
+        ok = ok & (e >= 0.0)
+    tm = torch.where(ok, t, float("inf"))
+    t_min = tm.min(dim=1).values
+    j = torch.arange(cols.shape[0], device=tm.device)
+    last = torch.where(ok & (tm == t_min[:, None]), j, -1).max(dim=1).values
+    cand = rank_base + last
+    t_best, r_best = h[0][sel], rank[sel]
+    better = (last >= 0) & ((t_min < t_best)
+                            | ((t_min == t_best) & (cand > r_best)))
+    win = cols[last.clamp_min(0)]
+    tkind = tri[tables.TRI_KIND][win]
+    textra = tri[tables.TRI_EXTRA][win]
+    t_met = (tkind >= 0.5) & (tkind < 1.5)
+    t_die = (tkind >= 1.5) & (tkind < 2.5)
+    vals = (t_min, tri[0][win], tri[1][win], tri[2][win], tkind + 8.0,
+            tri[tables.TRI_AR][win], tri[tables.TRI_AG][win],
+            tri[tables.TRI_AB][win], torch.where(t_met, textra, 0.0),
+            torch.where(t_die, textra, 1.0))
+    for k, val in enumerate(vals):
+        h[k][sel] = torch.where(better, val, h[k][sel])
+    rank[sel] = torch.where(better, cand, r_best)
+
+
 def _host_clusters(cl):
     if cl is None:
         return None
@@ -265,23 +341,136 @@ def _host_clusters(cl):
     return bounds.cpu().tolist(), ranges.cpu().tolist()
 
 
-def render_linear_ref(sph, tri, cam_vec, *, width, height,
-                      samples_per_pixel, depth, seed=0,
-                      parity_plane_sign=True, sph_clusters=None,
-                      tri_clusters=None, shard_rows=None, row_offset=0,
-                      row_stride=1):
-    """K1's plain PyTorch version: same arguments and results as
-    ``render_linear_cuda``, on whatever device the tensors are."""
-    shard_rows = _check_inputs(
-        sph, tri, cam_vec, sph_clusters, tri_clusters, width=width,
-        height=height, samples_per_pixel=samples_per_pixel, depth=depth,
-        parity_plane_sign=parity_plane_sign, shard_rows=shard_rows,
-        row_offset=row_offset, row_stride=row_stride)
+def new_hit(n, dev):
+    """The closest-hit record before any primitive: t, normal, kind,
+    albedo, fuzz, ir (Hit in path_common.cuh)."""
+    def full(v):
+        return torch.full((n,), v, dtype=_F32, device=dev)
+    return [full(BIG), full(0.0), full(0.0), full(1.0), full(0.0),
+            full(0.0), full(0.0), full(0.0), full(0.0), full(1.0)]
+
+
+def sphere_hits(sph_h, sphc_h, ray, alive):
+    """Closest sphere hit per ray (flat or culled by cluster AABBs), with
+    the normal recovered from the winning centre (_sphere_normals)."""
+    h = new_hit(ray[0].shape[0], ray[0].device)
+    _closest_hit(sph_h, sphc_h, _sphere_step, ray, h, alive)
+    ox, oy, oz, dx, dy, dz = ray
+    snx = ox + h[0] * dx - h[1]
+    sny = oy + h[0] * dy - h[2]
+    snz = oz + h[0] * dz - h[3]
+    slen = torch.sqrt(snx * snx + sny * sny + snz * snz)
+    slen = torch.where(slen == 0.0, 1.0, slen)
+    neg_r = h[4] >= 3.5
+    slen = torch.where(neg_r, -slen, slen)
+    h[4] = torch.where(neg_r, h[4] - 4.0, h[4])
+    h[1], h[2], h[3] = snx / slen, sny / slen, snz / slen
+    return h
+
+
+def resolve_tri_normals(h):
+    """Normalise a triangle winner's raw plane normal and strip its +8."""
+    is_tri = h[4] >= 7.5
+    ln = torch.sqrt(h[1] * h[1] + h[2] * h[2] + h[3] * h[3])
+    ln = torch.where(ln == 0.0, 1.0, ln)
+    for k in (1, 2, 3):
+        h[k] = torch.where(is_tri, h[k] / ln, h[k])
+    h[4] = torch.where(is_tri, h[4] - 8.0, h[4])
+
+
+def scatter_bookkeep(ray, h, pix_u, s, b, tp, rad, alive):
+    """_scatter_bookkeep: the draw at site 1 + b, the material scatter and
+    the bounce bookkeeping (common.rs:263-285).  ``tp`` / ``rad`` are the
+    throughput and radiance triples.  Returns (ray, tp, rad, cont)."""
+    t_best, nx, ny, nz, kind, ar, ag, ab, fz, irx = h
+    ox, oy, oz, dx, dy, dz = ray
+    hit = t_best < BIG
+    hpx = torch.where(hit, ox + t_best * dx, ox)
+    hpy = torch.where(hit, oy + t_best * dy, oy)
+    hpz = torch.where(hit, oz + t_best * dz, oz)
+
+    bx, by, bz = rng.uniform_bilateral3(pix_u, s, 1 + b)
+    rl = torch.sqrt(bx * bx + by * by + bz * bz)
+    rx, ry, rz = bx / rl, by / rl, bz / rl
+
+    sdx, sdy, sdz = nx + rx, ny + ry, nz + rz
+    deg = (sdx.abs() < EPS8) & (sdy.abs() < EPS8) & (sdz.abs() < EPS8)
+    sl = torch.sqrt(sdx * sdx + sdy * sdy + sdz * sdz)
+    sl = torch.where(sl == 0.0, 1.0, sl)
+    difx = torch.where(deg, nx, sdx / sl)
+    dify = torch.where(deg, ny, sdy / sl)
+    difz = torch.where(deg, nz, sdz / sl)
+
+    dn = dx * nx + dy * ny + dz * nz
+    mx = dx - 2.0 * dn * nx + fz * rx
+    my = dy - 2.0 * dn * ny + fz * ry
+    mz = dz - 2.0 * dn * nz + fz * rz
+    met_keep = (mx * nx + my * ny + mz * nz) >= 0.0
+    ml = torch.sqrt(mx * mx + my * my + mz * mz)
+    ml = torch.where(ml == 0.0, 1.0, ml)
+    metx, mety, metz = mx / ml, my / ml, mz / ml
+
+    inside = dn >= 0.0
+    sgn = torch.where(inside, -1.0, 1.0)
+    nex, ney, nez = sgn * nx, sgn * ny, sgn * nz
+    ratio = torch.where(inside, torch.ones_like(irx) / irx, irx)
+    cos_t = -(dx * nex + dy * ney + dz * nez)
+    px = ratio * (dx + cos_t * nex)
+    py = ratio * (dy + cos_t * ney)
+    pz = ratio * (dz + cos_t * nez)
+    pl2 = px * px + py * py + pz * pz
+    para = -torch.sqrt((1.0 - pl2).abs())
+    qx, qy, qz = px + para * nex, py + para * ney, pz + para * nez
+    ql = torch.sqrt(qx * qx + qy * qy + qz * qz)
+    ql = torch.where(ql == 0.0, 1.0, ql)
+    diex, diey, diez = qx / ql, qy / ql, qz / ql
+
+    is_dif = kind < 0.5
+    is_met = (kind >= 0.5) & (kind < 1.5)
+    is_die = (kind >= 1.5) & (kind < 2.5)
+    is_emi = kind >= 2.5
+    scr = torch.where(is_die, 1.0, ar)
+    scg = torch.where(is_die, 1.0, ag)
+    scb = torch.where(is_die, 1.0, ab)
+
+    def pick(dif, met, die, nrm):
+        return torch.where(is_dif, dif, torch.where(
+            is_met, met, torch.where(is_die, die, nrm)))
+
+    ndx = pick(difx, metx, diex, nx)
+    ndy = pick(dify, mety, diey, ny)
+    ndz = pick(difz, metz, diez, nz)
+    term = is_emi | (is_met & ~met_keep)
+
+    miss = alive & ~hit
+    terminal = alive & hit & term
+    cont = alive & hit & ~term
+    tsky = 0.5 * (dy + 1.0)
+    skyr = 1.0 - tsky * 0.5
+    skyg = 1.0 - tsky * SKY_G
+    (tpr, tpg, tpb), (rr, rg, rb) = tp, rad
+    rr = rr + torch.where(miss, tpr * skyr,
+                          torch.where(terminal, tpr * scr, 0.0))
+    rg = rg + torch.where(miss, tpg * skyg,
+                          torch.where(terminal, tpg * scg, 0.0))
+    rb = rb + torch.where(miss, tpb, torch.where(terminal, tpb * scb, 0.0))
+    tp = (torch.where(cont, tpr * scr, tpr), torch.where(cont, tpg * scg, tpg),
+          torch.where(cont, tpb * scb, tpb))
+    ray = [torch.where(cont, a, o) for a, o in
+           zip((hpx, hpy, hpz, ndx, ndy, ndz), ray)]
+    return ray, tp, (rr, rg, rb), cont
+
+
+def trace_pixels_ref(sph, cam_vec, tri_stage, *, width, height,
+                     samples_per_pixel, depth, seed, sph_clusters,
+                     shard_rows, row_offset, row_stride):
+    """The fused kernels' per-pixel loop in plain PyTorch (K1 and K4):
+    samples, camera rays, the bounce loop with its early exit, spheres,
+    ``tri_stage(ray, h, alive, b)`` for the triangles, shading.  Returns
+    (mean [shard_rows, W, 3], segments)."""
     dev = sph.device
     sph_h = sph.cpu().t().tolist()           # one list of rows per column
-    tri_h = tri.cpu().t().tolist()
     sphc_h = _host_clusters(sph_clusters)
-    tric_h = _host_clusters(tri_clusters)
     (ox0, oy0, oz0, llcx, llcy, llcz,
      hx, hy, hz, vx, vy, vz) = cam_vec.cpu().tolist()
 
@@ -317,121 +506,49 @@ def render_linear_ref(sph, tri, cam_vec, *, width, height,
         dlen = torch.sqrt(dx * dx + dy * dy + dz * dz)
         ray = [full(ox0), full(oy0), full(oz0), dx / dlen, dy / dlen,
                dz / dlen]
-        tpr, tpg, tpb = full(1.0), full(1.0), full(1.0)
-        rr, rg, rb = full(0.0), full(0.0), full(0.0)
+        tp = (full(1.0), full(1.0), full(1.0))
+        rad = (full(0.0), full(0.0), full(0.0))
         alive = active0
         for b in range(depth):
             if not bool(alive.any()):     # dead rays change nothing
                 break
             seg = seg + alive
-            h = [full(BIG), full(0.0), full(0.0), full(1.0), full(0.0),
-                 full(0.0), full(0.0), full(0.0), full(0.0), full(1.0)]
-            _closest_hit(sph_h, sphc_h, _sphere_step, ray, h, alive)
-
-            ox, oy, oz, dx, dy, dz = ray
-            # _sphere_normals
-            snx = ox + h[0] * dx - h[1]
-            sny = oy + h[0] * dy - h[2]
-            snz = oz + h[0] * dz - h[3]
-            slen = torch.sqrt(snx * snx + sny * sny + snz * snz)
-            slen = torch.where(slen == 0.0, 1.0, slen)
-            neg_r = h[4] >= 3.5
-            slen = torch.where(neg_r, -slen, slen)
-            h[4] = torch.where(neg_r, h[4] - 4.0, h[4])
-            h[1], h[2], h[3] = snx / slen, sny / slen, snz / slen
-
-            _closest_hit(tri_h, tric_h,
-                         lambda c, r_, hh, m: _tri_step(
-                             c, r_, hh, parity_plane_sign, m),
-                         ray, h, alive)
-            # _resolve_tri_normals
-            is_tri = h[4] >= 7.5
-            ln = torch.sqrt(h[1] * h[1] + h[2] * h[2] + h[3] * h[3])
-            ln = torch.where(ln == 0.0, 1.0, ln)
-            for k in (1, 2, 3):
-                h[k] = torch.where(is_tri, h[k] / ln, h[k])
-            h[4] = torch.where(is_tri, h[4] - 8.0, h[4])
-            t_best, nx, ny, nz, kind, ar, ag, ab, fz, irx = h
-            hit = t_best < BIG
-            hpx = torch.where(hit, ox + t_best * dx, ox)
-            hpy = torch.where(hit, oy + t_best * dy, oy)
-            hpz = torch.where(hit, oz + t_best * dz, oz)
-
-            # _scatter_bookkeep
-            bx, by, bz = rng.uniform_bilateral3(pix_u, s, 1 + b)
-            rl = torch.sqrt(bx * bx + by * by + bz * bz)
-            rx, ry, rz = bx / rl, by / rl, bz / rl
-
-            sdx, sdy, sdz = nx + rx, ny + ry, nz + rz
-            deg = (sdx.abs() < EPS8) & (sdy.abs() < EPS8) & (sdz.abs() < EPS8)
-            sl = torch.sqrt(sdx * sdx + sdy * sdy + sdz * sdz)
-            sl = torch.where(sl == 0.0, 1.0, sl)
-            difx = torch.where(deg, nx, sdx / sl)
-            dify = torch.where(deg, ny, sdy / sl)
-            difz = torch.where(deg, nz, sdz / sl)
-
-            dn = dx * nx + dy * ny + dz * nz
-            mx = dx - 2.0 * dn * nx + fz * rx
-            my = dy - 2.0 * dn * ny + fz * ry
-            mz = dz - 2.0 * dn * nz + fz * rz
-            met_keep = (mx * nx + my * ny + mz * nz) >= 0.0
-            ml = torch.sqrt(mx * mx + my * my + mz * mz)
-            ml = torch.where(ml == 0.0, 1.0, ml)
-            metx, mety, metz = mx / ml, my / ml, mz / ml
-
-            inside = dn >= 0.0
-            sgn = torch.where(inside, -1.0, 1.0)
-            nex, ney, nez = sgn * nx, sgn * ny, sgn * nz
-            ratio = torch.where(inside, torch.ones_like(irx) / irx, irx)
-            cos_t = -(dx * nex + dy * ney + dz * nez)
-            px = ratio * (dx + cos_t * nex)
-            py = ratio * (dy + cos_t * ney)
-            pz = ratio * (dz + cos_t * nez)
-            pl2 = px * px + py * py + pz * pz
-            para = -torch.sqrt((1.0 - pl2).abs())
-            qx, qy, qz = px + para * nex, py + para * ney, pz + para * nez
-            ql = torch.sqrt(qx * qx + qy * qy + qz * qz)
-            ql = torch.where(ql == 0.0, 1.0, ql)
-            diex, diey, diez = qx / ql, qy / ql, qz / ql
-
-            is_dif = kind < 0.5
-            is_met = (kind >= 0.5) & (kind < 1.5)
-            is_die = (kind >= 1.5) & (kind < 2.5)
-            is_emi = kind >= 2.5
-            scr = torch.where(is_die, 1.0, ar)
-            scg = torch.where(is_die, 1.0, ag)
-            scb = torch.where(is_die, 1.0, ab)
-
-            def pick(dif, met, die, nrm):
-                return torch.where(is_dif, dif, torch.where(
-                    is_met, met, torch.where(is_die, die, nrm)))
-
-            ndx = pick(difx, metx, diex, nx)
-            ndy = pick(dify, mety, diey, ny)
-            ndz = pick(difz, metz, diez, nz)
-            term = is_emi | (is_met & ~met_keep)
-
-            miss = alive & ~hit
-            terminal = alive & hit & term
-            cont = alive & hit & ~term
-            tsky = 0.5 * (dy + 1.0)
-            skyr = 1.0 - tsky * 0.5
-            skyg = 1.0 - tsky * SKY_G
-            rr = rr + torch.where(miss, tpr * skyr,
-                                  torch.where(terminal, tpr * scr, 0.0))
-            rg = rg + torch.where(miss, tpg * skyg,
-                                  torch.where(terminal, tpg * scg, 0.0))
-            rb = rb + torch.where(miss, tpb,
-                                  torch.where(terminal, tpb * scb, 0.0))
-            tpr = torch.where(cont, tpr * scr, tpr)
-            tpg = torch.where(cont, tpg * scg, tpg)
-            tpb = torch.where(cont, tpb * scb, tpb)
-            ray = [torch.where(cont, a, o) for a, o in
-                   zip((hpx, hpy, hpz, ndx, ndy, ndz), ray)]
-            alive = cont
-        acc_r, acc_g, acc_b = acc_r + rr, acc_g + rg, acc_b + rb
+            h = sphere_hits(sph_h, sphc_h, ray, alive)
+            tri_stage(ray, h, alive, b)
+            resolve_tri_normals(h)
+            ray, tp, rad, alive = scatter_bookkeep(ray, h, pix_u, s, b, tp,
+                                                   rad, alive)
+        acc_r, acc_g, acc_b = acc_r + rad[0], acc_g + rad[1], acc_b + rad[2]
 
     inv_spp = _inv_spp(samples_per_pixel)
     mean = torch.stack([acc_r * inv_spp, acc_g * inv_spp, acc_b * inv_spp],
                        dim=-1).reshape(shard_rows, width, 3)
     return mean, int(seg.sum())
+
+
+def render_linear_ref(sph, tri, cam_vec, *, width, height,
+                      samples_per_pixel, depth, seed=0,
+                      parity_plane_sign=True, sph_clusters=None,
+                      tri_clusters=None, shard_rows=None, row_offset=0,
+                      row_stride=1):
+    """K1's plain PyTorch version: same arguments and results as
+    ``render_linear_cuda``, on whatever device the tensors are."""
+    shard_rows = _check_inputs(
+        sph, tri, cam_vec, sph_clusters, tri_clusters, width=width,
+        height=height, samples_per_pixel=samples_per_pixel, depth=depth,
+        parity_plane_sign=parity_plane_sign, shard_rows=shard_rows,
+        row_offset=row_offset, row_stride=row_stride)
+    tri_h = tri.cpu().t().tolist()
+    tric_h = _host_clusters(tri_clusters)
+
+    def tri_stage(ray, h, alive, _b):
+        _closest_hit(tri_h, tric_h,
+                     lambda c, r_, hh, m: _tri_step(c, r_, hh,
+                                                    parity_plane_sign, m),
+                     ray, h, alive)
+
+    return trace_pixels_ref(
+        sph, cam_vec, tri_stage, width=width, height=height,
+        samples_per_pixel=samples_per_pixel, depth=depth, seed=seed,
+        sph_clusters=sph_clusters, shard_rows=shard_rows,
+        row_offset=row_offset, row_stride=row_stride)

@@ -1,9 +1,13 @@
-"""Host-side scene tables for the fused render kernel (K1).
+"""Host-side scene tables for the render kernels.
 
-Port of the numpy half of ``raytracer_tpu/ops/pallas/wavefront.py``: the
+Port of the numpy half of ``raytracer_tpu/ops/pallas/wavefront.py`` (K1's
+tables) and of ``build_tri_sorted_tables`` in
+``raytracer_tpu/ops/pallas/wavefront_sorted.py`` (the sorted tables that
+the binned engine K3 reads; they stay here, beside the K1 packers they
+build on, until the sorted engine K6, which shares them, is ported): the
 same row layouts, the same float64-then-float32 arithmetic and the same
 padding of invalid primitives, so the tables are equal to the JAX package's
-element for element.  The kernel reads them as row-major ``(ROWS, N)``
+element for element.  The kernels read them as row-major ``(ROWS, N)``
 float32 tensors.
 
 Spheres, (SPH_ROWS, S): center xyz, radius, r^2 (< 0 for padding), material
@@ -17,6 +21,13 @@ rows are all zero, so the parallel test rejects every ray.
 Clusters, from a median split: bounds (6, C) float32 [lo xyz, hi xyz]
 (empty nodes have lo > hi) and ranges (2, C) int32 [start, end) into the
 table packed with the matching ``perm``.
+
+Sorted tables (``build_tri_sorted_tables``): the triangle table laid out as
+32-column sub-leaves (TRI_ROWS_PAD rows, zero columns never hit), four
+sub-leaves to a 128-column group, eight groups to a top node, with a
+bounding sphere and an AABB per level, the root sphere, the secondary-bounce
+reference points with their visit orders, keys and run bounds, and the box
+that quantises the next-top sort keys.
 """
 
 from __future__ import annotations
@@ -26,8 +37,10 @@ import torch
 
 from ..camera import Camera
 
-__all__ = ["SPH_ROWS", "TRI_ROWS", "pack_spheres", "pack_triangles",
-           "cluster_spheres", "cluster_triangles", "camera_vec"]
+__all__ = ["SPH_ROWS", "TRI_ROWS", "TRI_ROWS_PAD", "SUB", "GROUP_SUBS",
+           "GROUP", "TOP_GROUPS", "TOP_SPAN", "RUN", "REF_TOPS",
+           "pack_spheres", "pack_triangles", "cluster_spheres",
+           "cluster_triangles", "build_tri_sorted_tables", "camera_vec"]
 
 # sphere table rows
 (SPH_CX, SPH_CY, SPH_CZ, SPH_R, SPH_R2,
@@ -41,6 +54,21 @@ SPH_ROWS = 11
  TRI_G2X, TRI_G2Y, TRI_G2Z, TRI_W2,
  TRI_KIND, TRI_EXTRA, TRI_AR, TRI_AG, TRI_AB) = range(21)
 TRI_ROWS = 21
+# rows of the leaf-aligned tables (K3, K4): TRI_ROWS and zero rows up to a
+# multiple of 8, as the JAX package lays them out
+TRI_ROWS_PAD = -(-TRI_ROWS // 8) * 8
+
+# sorted-table layout (wavefront_sorted.py:66-76)
+SUB = 32                    # triangles per sub-leaf
+GROUP_SUBS = 4              # sub-leaves per 128-column group
+GROUP = SUB * GROUP_SUBS
+TOP_GROUPS = 8              # groups per top node
+TOP_SPAN = TOP_GROUPS * GROUP
+RUN = 8                     # visit-order entries under one run bound
+REF_TOPS = 4                # top nodes per secondary reference point
+
+# conservative float32 padding of bounding-sphere radii
+BOUND_PAD = 1.0 + 1e-4
 
 
 def pack_spheres(scene, perm=None) -> np.ndarray:
@@ -184,6 +212,176 @@ def cluster_triangles(scene, leaf_target: int = 64):
 
     return _clusters((v0 + v1 + v2) / 3.0, np.asarray(h.tri_valid),
                      leaf_target, member_bounds)
+
+
+def _bounding_sphere(points: np.ndarray):
+    bc = (points.min(axis=0) + points.max(axis=0)) * 0.5
+    br = float(np.max(np.linalg.norm(points - bc, axis=-1)))
+    return bc, br * BOUND_PAD + 1e-4
+
+
+def _aabb_of(points: np.ndarray):
+    """Conservatively padded float32 AABB of ``points``."""
+    return _aabb_pad_np(points.min(axis=0), points.max(axis=0))
+
+
+def _aabb_union(aabb: np.ndarray, members):
+    """Union of child AABB columns (aabb (6, M): lo rows 0-2, hi 3-5)."""
+    return (aabb[0:3, members].min(axis=1).astype(np.float32),
+            aabb[3:6, members].max(axis=1).astype(np.float32))
+
+
+def union_bound(child_bounds: np.ndarray, members):
+    """Bounding sphere (centre, padded radius) of child bounding spheres
+    (columns [cx, cy, cz, r^2] of ``child_bounds``)."""
+    cs = child_bounds[0:3, members]
+    bc = (cs.min(axis=1) + cs.max(axis=1)) * 0.5
+    br = 0.0
+    for m in members:
+        d = float(np.linalg.norm(child_bounds[0:3, m] - bc))
+        br = max(br, d + float(np.sqrt(child_bounds[3, m])))
+    return bc, br * BOUND_PAD + 1e-4
+
+
+def build_tri_sorted_tables(scene):
+    """Sub-leaf-aligned triangle table, three levels of bounds and the
+    sort-key box (``wavefront_sorted.build_tri_sorted_tables``).
+
+    Returns (tri (TRI_ROWS_PAD, L*SUB) f32, sub_bounds (4, L) f32,
+    sub_counts (1, L) i32, grp_bounds (4, G) f32, top_bounds (4, C) f32,
+    top_ranges (2, C) i32 [group ranges], root (4, 1) f32,
+    ref_pts (4, NR) f32, node_orders (NR, C) i32, node_keys (NR, C) f32,
+    node_run_bounds (4, NR*R8) f32, key_lo (3,) f32, key_hi (3,) f32,
+    sub_aabb (6, L) f32, grp_aabb (6, G) f32, top_aabb (6, C) f32), with
+    NR = ceil(C / REF_TOPS) and R8 = ceil(C / RUN).  Bounding spheres are
+    [cx, cy, cz, r^2] (r^2 < 0: empty); AABBs [lo xyz, hi xyz] (lo > hi:
+    empty).  Sub-leaves are median-split clusters of <= SUB valid
+    triangles in depth-first order, L padded to a whole top node.  Row i
+    of node_orders is the top visit order from reference point i (the
+    centroid of REF_TOPS consecutive tops) with keys dist - radius;
+    node_run_bounds[:, i*R8 + k] bounds that order's entries
+    [k*RUN, (k+1)*RUN).  key_lo/key_hi is the triangles' box grown 25% a
+    side.  ``scene``: a Scene or HostScene."""
+    h = scene.numpy()
+    v0 = np.asarray(h.tri_v0, np.float64)
+    v1 = np.asarray(h.tri_v1, np.float64)
+    v2 = np.asarray(h.tri_v2, np.float64)
+    valid = np.asarray(h.tri_valid)
+    vidx = np.nonzero(valid)[0]
+    cen = (v0 + v1 + v2) / 3.0
+    perm_v, slices = _median_split_order(cen[vidx], SUB)
+    perm_valid = vidx[perm_v]
+    n_sub = max(len(slices), 1)
+    L = -(-n_sub // (GROUP_SUBS * TOP_GROUPS)) * (GROUP_SUBS * TOP_GROUPS)
+    G = L // GROUP_SUBS
+    C = max(G // TOP_GROUPS, 1)
+
+    packed = pack_triangles(h, perm=np.concatenate(
+        [perm_valid, np.nonzero(~valid)[0]]).astype(np.int64))
+    tri = np.zeros((TRI_ROWS_PAD, L * SUB), np.float32)
+    sub_bounds = np.zeros((4, L), np.float32)
+    sub_bounds[3] = -1.0
+    sub_counts = np.zeros((1, L), np.int32)
+    sub_aabb = np.zeros((6, L), np.float32)
+    sub_aabb[0:3] = 1.0
+    sub_aabb[3:6] = -1.0
+    for k, (s, e) in enumerate(slices or [(0, 0)]):
+        n = e - s
+        tri[:TRI_ROWS, k * SUB:k * SUB + n] = packed[:, s:e]
+        sub_counts[0, k] = n
+        if n == 0:
+            continue
+        mem = perm_valid[s:e]
+        verts = np.concatenate([v0[mem], v1[mem], v2[mem]], axis=0)
+        bc, br = _bounding_sphere(verts)
+        sub_bounds[0:3, k] = bc
+        sub_bounds[3, k] = br * br
+        sub_aabb[0:3, k], sub_aabb[3:6, k] = _aabb_of(verts)
+
+    grp_bounds = np.zeros((4, G), np.float32)
+    grp_bounds[3] = -1.0
+    grp_aabb = np.zeros((6, G), np.float32)
+    grp_aabb[0:3] = 1.0
+    grp_aabb[3:6] = -1.0
+    for g in range(G):
+        members = [m for m in range(g * GROUP_SUBS, (g + 1) * GROUP_SUBS)
+                   if sub_counts[0, m] > 0]
+        if not members:
+            continue
+        bc, br = union_bound(sub_bounds, members)
+        grp_bounds[0:3, g] = bc
+        grp_bounds[3, g] = br * br
+        grp_aabb[0:3, g], grp_aabb[3:6, g] = _aabb_union(sub_aabb, members)
+
+    top_bounds = np.zeros((4, C), np.float32)
+    top_bounds[3] = -1.0
+    top_ranges = np.zeros((2, C), np.int32)
+    top_aabb = np.zeros((6, C), np.float32)
+    top_aabb[0:3] = 1.0
+    top_aabb[3:6] = -1.0
+    for c in range(C):
+        g0, g1 = c * TOP_GROUPS, min((c + 1) * TOP_GROUPS, G)
+        top_ranges[0, c], top_ranges[1, c] = g0, g1
+        members = [m for m in range(g0, g1) if grp_bounds[3, m] > 0]
+        if not members:
+            continue
+        bc, br = union_bound(grp_bounds, members)
+        top_bounds[0:3, c] = bc
+        top_bounds[3, c] = br * br
+        top_aabb[0:3, c], top_aabb[3:6, c] = _aabb_union(grp_aabb, members)
+
+    root = np.zeros((4, 1), np.float32)
+    root[3] = -1.0
+    live = [m for m in range(G) if grp_bounds[3, m] > 0]
+    if live:
+        bc, br = union_bound(grp_bounds, live)
+        root[0:3, 0] = bc
+        root[3, 0] = br * br
+
+    centers = top_bounds[0:3]
+    rads = np.sqrt(np.maximum(top_bounds[3], 0.0))
+    valid_top = top_bounds[3] > 0.0
+    NR = -(-C // REF_TOPS)
+    R8 = -(-C // RUN)
+    ref_pts = np.zeros((4, NR), np.float32)
+    node_orders = np.zeros((NR, C), np.int32)
+    node_keys = np.zeros((NR, C), np.float32)
+    node_run_bounds = np.zeros((4, NR * R8), np.float32)
+    node_run_bounds[3] = -1.0
+    for i in range(NR):
+        members = [m for m in range(i * REF_TOPS, min((i + 1) * REF_TOPS, C))
+                   if valid_top[m]]
+        p = (centers[:, members].mean(axis=1) if members
+             else centers[:, min(i * REF_TOPS, C - 1)])
+        ref_pts[0:3, i] = p
+        ref_pts[3, i] = 1.0 if members else -1.0
+        d = np.linalg.norm(centers.T - p, axis=1)
+        keys = np.where(valid_top, d - rads, np.inf)
+        order = np.argsort(keys, kind="stable").astype(np.int32)
+        node_orders[i] = order
+        node_keys[i] = keys[order].astype(np.float32)
+        for k in range(R8):
+            run = [int(j) for j in order[k * RUN:(k + 1) * RUN]
+                   if valid_top[j]]
+            if not run:
+                continue
+            bc, br = union_bound(top_bounds, run)
+            node_run_bounds[0:3, i * R8 + k] = bc
+            node_run_bounds[3, i * R8 + k] = br * br
+
+    if len(vidx):
+        verts = np.concatenate([v0[vidx], v1[vidx], v2[vidx]], axis=0)
+        lo = verts.min(axis=0)
+        hi = verts.max(axis=0)
+        pad = 0.25 * np.maximum(hi - lo, 1e-3)
+        key_lo = (lo - pad).astype(np.float32)
+        key_hi = (hi + pad).astype(np.float32)
+    else:
+        key_lo = np.full(3, -1.0, np.float32)
+        key_hi = np.full(3, 1.0, np.float32)
+    return (tri, sub_bounds, sub_counts, grp_bounds, top_bounds,
+            top_ranges, root, ref_pts, node_orders, node_keys,
+            node_run_bounds, key_lo, key_hi, sub_aabb, grp_aabb, top_aabb)
 
 
 def camera_vec(camera: Camera) -> torch.Tensor:

@@ -12,9 +12,10 @@ multiplied by the colour of each scattering hit; a terminal hit (emission,
 absorbed metal) adds throughput x colour and stops; a miss adds
 throughput x the sky gradient; rays that run out of bounces add black.
 
-``ray_trace`` renders through ``ops.render_linear_fast`` (K1) on
-``Options.device`` and turns the mean linear image into the reference's u8
-framebuffer with ``finalize_image`` (common.rs:334-356).  The sequential
+``ray_trace`` renders through ``ops.render_linear_fast`` (K1, or K3 / K4
+for big meshes) on ``Options.device`` and turns the mean linear image into
+the reference's u8 framebuffer with ``finalize_image``
+(common.rs:334-356).  The sequential
 parity renderer of the JAX package is not ported yet.
 """
 
@@ -43,8 +44,11 @@ _SITE_JITTER = 0        # pcg3d draw site of the camera jitter
 class Options:
     """Render options (common.rs:288-317).
 
-    ``device`` is where the render runs: "cuda" (K1, the default) or "cpu"
-    (K1's plain version).  Nothing falls back from one to the other.
+    ``device`` is where the render runs: "cuda" (the kernels, the default)
+    or "cpu" (their plain versions).  Nothing falls back from one to the
+    other.  ``engine`` is "auto" (``ops.resolve_dispatch``) or one of
+    ``ops.ENGINES``: "cuda" (K1), "cuda_binned" (K3), "cuda_stream" (K4),
+    or "torch", "torch_binned", "torch_stream" (their plain versions).
     ``positive_is_up`` is stored but never read, like the reference's.
     ``logger(rows_done, height)`` is the reference's progress hook
     (common.rs:292,328-330); with one set the render runs in row bands, with
@@ -56,7 +60,7 @@ class Options:
     # None = resolve per scene (ops.resolve_dispatch)
     parity_plane_sign: Optional[bool] = None
     seed: int = rng.DEFAULT_SEED
-    engine: str = "auto"            # "auto" | "cuda" | "torch"
+    engine: str = "auto"
     logger: Optional[Callable[[int, int], None]] = None
     device: str = "cuda"
 

@@ -93,8 +93,7 @@ def test_cli_cuda_without_gpu_exits_nonzero(monkeypatch, tmp_path):
     assert not (tmp_path / "x.ppm").exists()
 
 
-@pytest.mark.parametrize("arg,words", [("parity=1", "parity renderer"),
-                                       ("obj=mesh.obj", "models/obj.py")])
+@pytest.mark.parametrize("arg,words", [("parity=1", "parity renderer")])
 def test_cli_unported_options_exit_with_message(arg, words):
     with pytest.raises(SystemExit) as e:
         cli.main([arg, "device=cpu"])

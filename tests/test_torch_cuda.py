@@ -1,7 +1,8 @@
-"""K1 and K5 on the card: each CUDA kernel against its plain version (K1:
-equal segment counts, max|diff| <= 1e-5; K5: winner ids equal, dsph, dtri
-and dcam within 1e-5 * max|ref| + 1e-7), banding, the launch counters, a
-render-then-grad round trip through both kernels and input checks.
+"""K1, K5, K4 and K3 on the card: each CUDA kernel against its plain
+version (K1, K4, K3: equal segment counts, max|diff| <= 1e-5; K5: winner
+ids equal, dsph, dtri and dcam within 1e-5 * max|ref| + 1e-7), banding, the
+launch counters, a render-then-grad round trip through K1 and K5, the
+mesh dispatch through K3 and K4, and input checks.
 Marked ``cuda``: each test skips where there is no GPU.  On a GPU machine
 without JAX, run them without the suite's JAX conftest:
 ``python -m pytest tests/test_torch_cuda.py -q --noconftest``."""
@@ -178,3 +179,72 @@ def test_render_then_grad_round_trip_uses_both_kernels(dev):
         assert torch.isfinite(a).all()
         assert float((a - b).abs().max()) <= \
             5e-3 * float(b.abs().max()) + 1e-7, k
+
+
+# ---------------------------------------------------------------------------
+# K4 and K3, the mesh engines
+# ---------------------------------------------------------------------------
+
+MKW = dict(width=64, height=36, samples_per_pixel=2, depth=4, seed=5)
+
+
+def _mesh(name):
+    scene, cam = (rtt.models.obj_mesh_scene() if name == "obj_mesh_scene"
+                  else rtt.models.mesh_scene(int(name[-1])))
+    return scene, cam
+
+
+@pytest.mark.parametrize("name", ["mesh_scene2", "mesh_scene3",
+                                  "obj_mesh_scene"])
+def test_k4_matches_plain_version(dev, name):
+    from raytracer_tpu_torch.ops.cuda import wavefront_stream as ws
+    scene, cam = _mesh(name)
+    fn, args, kw = ops._stream_call(scene, cam, dev, plain=False)
+    before = ws.LAUNCHES
+    km, ks = ws.render_linear_stream_cuda(*args, **MKW, **kw)
+    torch.cuda.synchronize()
+    assert ws.LAUNCHES == before + 1
+    pm, ps = ws.render_linear_stream_ref(*args, **MKW, **kw)
+    assert torch.isfinite(km).all() and ks == ps
+    assert float((km - pm).abs().max()) <= TOL
+    band, bs = ws.render_linear_stream_cuda(*args, **MKW, **kw,
+                                            shard_rows=8, row_offset=9)
+    assert torch.equal(band, km[9:17])
+
+
+@pytest.mark.parametrize("name", ["mesh_scene2", "mesh_scene3",
+                                  "obj_mesh_scene"])
+def test_k3_matches_plain_version(dev, name):
+    from raytracer_tpu_torch.ops.cuda import wavefront_binned as wb
+    scene, cam = _mesh(name)
+    (sph, scl, *t) = ops.scene_sorted_tables(scene, dev)
+    order, keys = ops._camera_order(t[4], cam, dev)
+    args = (sph, *t, tables.camera_vec(cam).to(dev))
+    kw = dict(MKW, sph_clusters=scl, top_order=order, top_keys=keys)
+    before = wb.LAUNCHES
+    km, ks = wb.render_linear_binned(*args, **kw)
+    torch.cuda.synchronize()
+    assert wb.LAUNCHES == before + MKW["depth"]
+    pm, ps = wb.render_linear_binned(*args, **kw, plain=True)
+    assert torch.isfinite(km).all() and ks == ps
+    assert float((km - pm).abs().max()) <= TOL
+    for variant in (dict(super_selection=True), dict(node_exit=False),
+                    dict(bounce_caps=(1 << 20,) * 3)):
+        got = wb.render_linear_binned(*args, **kw, **variant)
+        assert torch.equal(got[0], km) and got[1] == ks
+    assert float(wb.render_linear_binned(*args, **kw,
+                                         bounce_caps=(32,) * 3)[2]) > 0
+
+
+def test_mesh_dispatch_launches_k3_unbanded_and_k4_banded(dev):
+    from raytracer_tpu_torch.ops.cuda import wavefront_binned as wb
+    from raytracer_tpu_torch.ops.cuda import wavefront_stream as ws
+    scene, cam = rtt.models.mesh_scene(3)
+    counts = (wfc.LAUNCHES, wb.LAUNCHES, ws.LAUNCHES)
+    shape = dict(width=48, height=32, samples_per_pixel=4, depth=3,
+                 device=dev)
+    ops.render_linear_fast(scene, cam, **shape)
+    ops.render_linear_fast(scene, cam, **shape, progress=lambda *a: None)
+    assert (wfc.LAUNCHES - counts[0], wb.LAUNCHES - counts[1],
+            ws.LAUNCHES - counts[2]) == (0, 3, 16)
+    assert ops.flush_binned_overflow_checks() == 0

@@ -24,12 +24,15 @@ MODULES = [
     "raytracer_tpu_torch.image",
     "raytracer_tpu_torch.models",
     "raytracer_tpu_torch.models.builders",
+    "raytracer_tpu_torch.models.obj",
     "raytracer_tpu_torch.ops",
     "raytracer_tpu_torch.ops.tables",
     "raytracer_tpu_torch.ops.cuda",
     "raytracer_tpu_torch.ops.cuda.build",
     "raytracer_tpu_torch.ops.cuda.wavefront",
     "raytracer_tpu_torch.ops.cuda.wavefront_bwd",
+    "raytracer_tpu_torch.ops.cuda.wavefront_stream",
+    "raytracer_tpu_torch.ops.cuda.wavefront_binned",
     "raytracer_tpu_torch.ops.diff",
     "raytracer_tpu_torch.render",
     "raytracer_tpu_torch.utils.profiling",
