@@ -6,10 +6,11 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 It drives the port's forward render path through the hand-written CUDA
-kernel K1, its gradient pass through K1 and the backward kernel K5, and its
+kernel K1, its gradient pass through K1 and the backward kernel K5, its
 triangle-mesh paths through the binned per-bounce kernel K3 and the
-streamed big-mesh kernel K4, and fails (non-zero exit, no result line) if
-any phase fails:
+streamed big-mesh kernel K4, and the big-mesh gradient pass through K2 and
+K5s (K1 and K5 with the two-level leaf walk), and fails (non-zero exit, no
+result line) if any phase fails:
 
   1. device: a CUDA GPU is required; prints its name and power limit;
   2. build: compiles csrc/*.cu with nvcc (first use) and prints the time;
@@ -32,6 +33,13 @@ any phase fails:
      the rows of a whole K4 render.  Bar: equal segments, and max|diff|
      <= 1e-5 except on at most 0.01% of the pixels (exact triangle ties),
      each reported;
+  3d. K2 and K5s vs their plain versions at 64x36, 2 spp, depth 4,
+     correct sign: OBJ-10k in the 128-leaf topology (forced: 128 leaves,
+     8 tops) and the 164k scene under its own rule (2048 leaves, 128 tops).
+     Bars: K2 as in 3c; K5s winner ids equal lane for lane and dsph, dtri,
+     dcam within 1e-5 * max|ref| + 1e-7; and K2 / K5s bitwise equal to
+     K1 / K5 over the packed table and the same leaves (image, segments,
+     slab, camera lanes);
   4. the main path: ``cli.main`` at width 512, 64 spp, depth 8, checked
      by the launch counters (one K1 launch per row band, no K5) and
      against the plain version's framebuffer;
@@ -57,6 +65,14 @@ any phase fails:
      version at the CLI's shape and 16 bands, held against each other, the
      K4 one bitwise the CLI's framebuffer.  Both framebuffers within 1 LSB
      of K1's render of the same scene on 99.99% of pixels;
+  4d. the mesh gradient path at full width, as bench.py:184-222 sets it
+     up (target from ``render_linear_fast`` at seed 0, loss at seed 1,
+     correct sign, ``make_loss_fn(engine="pallas")``): OBJ-10k at 256x256,
+     8 spp, depth 4 (tri_v0, mat_color) launches exactly one K1 and one K5
+     per value and gradient; the 164k scene at 256x256, 4 spp, depth 4
+     (tri_v0) exactly one K2 and one K5s; gradients finite and not all
+     zero; then 3 Adam steps at lr 1e-2 recovering mat_color from half of
+     it on each, one launch pair per step, and the loss falls;
   5. throughput on the card: rays/s (traced segments / s) for the default
      world at 512x512, 64 spp, depth 8 and the random sphere field at
      512x512, 16 spp, depth 8, with K1's and the plain version's times;
@@ -72,7 +88,16 @@ any phase fails:
      one; K3 and K4 against their plain versions at OBJ-10k 512x288, 4 spp,
      depth 4, with their times and bounds (the node and triangle tests
      counted from the plain versions' rays and final hits); K4 at the
-     CLI's shape.
+     CLI's shape;
+  5d. mesh gradient throughput: paths/s of both value-and-gradient passes
+     (median of 5, host clock ending in a sync); K2 and K5s (164k) and K1
+     and K5 (OBJ-10k) by CUDA events at the passes' own tables and image
+     cotangents, K2 and K5s held against their plain versions there, with
+     their times and bounds (top, leaf and triangle tests counted from the
+     plain version's rays); the winner reduction, the host glue and the
+     peak device memory of each pass; the walk crossover: the 164k pass
+     one-level in 64-triangle leaves against the two-level walk, OBJ-10k
+     one-level against the forced two-level walk.
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -348,15 +373,12 @@ GRAD_FULL = dict(width=256, height=256, samples_per_pixel=8, depth=4)
 GRAD_FIELDS = ["sphere_center", "sphere_radius", "mat_color"]
 
 
-def _grad_tables(scene, parity, dev):
+def _grad_tables(scene, parity):
     from raytracer_tpu_torch.ops import diff
-    cull = None if parity else diff.build_tri_cull(scene)
-    tri_cl = None if cull is None else (
-        diff.tri_cluster_bounds(scene, cull),
-        torch.from_numpy(cull.ranges).to(dev))
-    return (diff.pack_spheres(scene).detach(),
-            diff.pack_triangles(scene, perm=None if cull is None
-                                else cull.perm).detach(), tri_cl)
+    with torch.no_grad():
+        t = diff.walk_tables(scene, None if parity
+                             else diff.build_tri_cull(scene))
+    return t["sph"], t["packed"], t["clusters"]
 
 
 def _within(name, got, want, rel) -> float:
@@ -368,6 +390,24 @@ def _within(name, got, want, rel) -> float:
     if not err <= rel * scale + 1e-7:
         raise SystemExit(f"{name}: max|diff| {err} over {rel} * {scale}")
     return err
+
+
+def _hold_k5(name, kern, plain, S, T) -> float:
+    """K5 / K5s outputs (slab, camera lanes) against the plain version's:
+    winner ids equal lane for lane (some lane hits), the reduced dsph, dtri
+    and dcam within TOL * max|ref| + 1e-7.  Returns the worst of those."""
+    from raytracer_tpu_torch.ops.cuda import wavefront_bwd as wb
+    kids, pids = kern[0][:, :, wb.GP_WIN], plain[0][:, :, wb.GP_WIN]
+    if not torch.equal(kids, pids) or not (pids >= 0).any():
+        raise SystemExit(f"{name}: winner ids differ from the plain "
+                         f"version's ({int((kids != pids).sum())} lanes)")
+    lane_err = max(float((a - b).abs().max()) for a, b in zip(kern, plain))
+    errs = [_within(f"{name} {out}", a, b, TOL) for out, a, b in zip(
+        ("dsph", "dtri", "dcam"), wb.reduce_slab(*kern, S, T),
+        wb.reduce_slab(*plain, S, T))]
+    log(f"  {name}: winner ids equal, per-lane max|diff| {lane_err:.3e}; "
+        f"dsph/dtri/dcam max|diff| {' / '.join(f'{e:.3e}' for e in errs)}")
+    return max(errs)
 
 
 def phase_grad_vs_plain(rtt) -> float:
@@ -392,7 +432,7 @@ def phase_grad_vs_plain(rtt) -> float:
     }
     worst = 0.0
     for name, (scene, cam, parity, band) in worlds.items():
-        sph, tri, tri_cl = _grad_tables(scene, parity, dev)
+        sph, tri, tri_cl = _grad_tables(scene, parity)
         if "clusters" in name and tri_cl is None:
             raise SystemExit(f"{name}: expected cluster tables")
         band = band or {}
@@ -402,23 +442,10 @@ def phase_grad_vs_plain(rtt) -> float:
         cv = tables.camera_vec(cam)
         kw = dict(GRAD_SMALL, parity_plane_sign=parity, tri_clusters=tri_cl,
                   **band)
-        kslab, kcam = wb.grad_slab_cuda(sph, tri, g, cv, **kw)
+        kern = wb.grad_slab_cuda(sph, tri, g, cv, **kw)
         torch.cuda.synchronize()
-        pslab, pcam = wb.grad_slab_ref(sph, tri, g, cv, **kw)
-        kids, pids = kslab[:, :, wb.GP_WIN], pslab[:, :, wb.GP_WIN]
-        if not torch.equal(kids, pids) or not (pids >= 0).any():
-            raise SystemExit(f"{name}: K5 winner ids differ from the plain "
-                             f"version's ({int((kids != pids).sum())} lanes)")
-        lane_err = max(float((kslab - pslab).abs().max()),
-                       float((kcam - pcam).abs().max()))
-        S, T = sph.shape[1], tri.shape[1]
-        errs = [_within(f"{name} {out}", a, b, TOL) for out, a, b in zip(
-            ("dsph", "dtri", "dcam"), wb.reduce_slab(kslab, kcam, S, T),
-            wb.reduce_slab(pslab, pcam, S, T))]
-        worst = max(worst, *errs)
-        log(f"  {name}: winner ids equal, per-lane max|diff| {lane_err:.3e}; "
-            f"dsph/dtri/dcam max|diff| "
-            f"{' / '.join(f'{e:.3e}' for e in errs)}")
+        worst = max(worst, _hold_k5(name, kern, wb.grad_slab_ref(
+            sph, tri, g, cv, **kw), sph.shape[1], tri.shape[1]))
 
     # K1 + K5 against autograd through the wavefront renderer, every
     # parameter class and the camera
@@ -569,7 +596,7 @@ def phase_grad_throughput(rtt, smi: str) -> dict:
     # start params' tables (spheres flat) and the loss's image cotangent
     from raytracer_tpu_torch.ops.cuda import wavefront as wfc
     s = grad.apply_params(scene, start)
-    sph, tri, _ = _grad_tables(s, True, dev)
+    sph, tri, _ = _grad_tables(s, True)
     cv = tables.camera_vec(cam)
     kw = dict(GRAD_FULL, seed=1, parity_plane_sign=True)
     k1_ms = _event_ms(lambda: wfc.render_linear_cuda(sph, tri, cv, **kw))
@@ -584,30 +611,16 @@ def phase_grad_throughput(rtt, smi: str) -> dict:
     log(f"  K1 forward {k1_ms:.3f} ms, K5 {ms:.3f} ms, winner reduction "
         f"{red_ms:.3f} ms (CUDA events, median of 5)")
     # K5's plain version at the same shape, timed and held against K5
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    pslab, pcam = wb.grad_slab_ref(sph, tri, g, cv, **kw)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    kids, pids = kslab[:, :, wb.GP_WIN], pslab[:, :, wb.GP_WIN]
-    if not torch.equal(kids, pids) or not (pids >= 0).any():
-        raise SystemExit(f"K5 at {GRAD_FULL}: winner ids differ from the "
-                         f"plain version's ({int((kids != pids).sum())} "
-                         f"lanes)")
-    lane_err = max(float((kslab - pslab).abs().max()),
-                   float((kcam - pcam).abs().max()))
-    S, T = sph.shape[1], tri.shape[1]
-    errs = [_within(f"K5 at {GRAD_FULL} {out}", a, b, TOL) for out, a, b in
-            zip(("dsph", "dtri", "dcam"), wb.reduce_slab(kslab, kcam, S, T),
-                wb.reduce_slab(pslab, pcam, S, T))]
-    log(f"  K5 plain version {plain_ms:.3f} ms; K5 vs plain: winner ids "
-        f"equal, per-lane max|diff| {lane_err:.3e}, dsph/dtri/dcam "
-        f"max|diff| {' / '.join(f'{e:.3e}' for e in errs)}")
+    plain_ms, plain = _sync_ms(lambda: wb.grad_slab_ref(sph, tri, g, cv,
+                                                        **kw))
+    log(f"  K5 plain version {plain_ms:.3f} ms")
+    err = _hold_k5(f"K5 vs plain at {GRAD_FULL}", (kslab, kcam), plain,
+                   sph.shape[1], tri.shape[1])
     b = bound(kseg * (2 * (sph.shape[1] * FLOPS_SPHERE + FLOPS_SHADE)
                       + FLOPS_ADJOINT), nbytes(sph, tri, g, cv, kslab, kcam))
     log(f"  K5 bound {b[0]:.4f} ms by {b[1]}")
     return dict(paths_per_s=paths / sec, ms=ms, plain_ms=plain_ms,
-                k1_err=k1_err, k5_err=max(errs), bound=b)
+                k1_err=k1_err, k5_err=err, bound=b)
 
 
 # ---------------------------------------------------------------------------
@@ -717,56 +730,69 @@ def _parents(ranges, n_children):
 
 
 def _walk_ops(ray, alive, cull, wid, n_warps, levels, leaf_tris):
-    """Float32 operations of one bounce's warp-culled walk that the kernel
-    cannot skip.  ``levels``: (test(ray, cull) -> [n, M] bool, each node's
+    """Float32 operations of one bounce's culled walk, as (the rays' own,
+    the warps').  ``levels``: (test(ray, cull) -> [n, M] bool, each node's
     parent in the level above or None, operations per test), top level
     first; ``leaf_tris``: triangles in each node of the last level; ``wid``:
-    each lane's warp.  A warp tests a node when a live lane of it passes
-    the node's parent (a top-level node: when one passes the node itself)
-    and a leaf's triangles when one passes the leaf, and all 32 lanes
-    execute each test.  The culling distance is each ray's final closest
-    hit (capped as the kernel caps it), never above the walk's own at any
-    step, so the kernel makes every test counted here; top-level tests that
-    fail are left out."""
+    each lane's warp.  The rays' own count, the bound's, charges each live
+    ray for the nodes whose parent it passes itself (a top-level node: that
+    it passes) and the triangles of the leaves it passes.  The warps' count
+    is what the SIMT kernel executes: a warp tests a node when a live lane
+    of it passes the node's parent (a top-level node: when one passes the
+    node itself) and a leaf's triangles when one passes the leaf, all 32
+    lanes each test; its excess over the rays' own is divergence.  The
+    culling distance is each ray's final closest hit (capped as the kernel
+    caps it), never above the walk's own at any step, so the walk makes
+    every test counted here; top-level tests that fail are left out."""
     n = ray[0].shape[0]
-    passed = []
-    for test, _, _ in levels:
-        acc = None
-        for i in range(0, n, 1 << 15):
-            sl = slice(i, i + (1 << 15))
+    lane, acc = 0.0, [None] * len(levels)
+    for i in range(0, n, 1 << 15):
+        sl = slice(i, i + (1 << 15))
+        above = None
+        for k, (test, parent, flops) in enumerate(levels):
             m = test([x[sl] for x in ray], cull[sl]) & alive[sl, None]
-            if acc is None:
-                acc = torch.zeros((n_warps, m.shape[1]), dtype=torch.int32,
-                                  device=m.device)
-            acc.index_add_(0, wid[sl], m.to(torch.int32))
-        passed.append(acc > 0)
-    ops, above = 0.0, None
-    for (_, parent, flops), p in zip(levels, passed):
+            if acc[k] is None:
+                acc[k] = torch.zeros((n_warps, m.shape[1]),
+                                     dtype=torch.int32, device=m.device)
+            acc[k].index_add_(0, wid[sl], m.to(torch.int32))
+            tested = m if parent is None else above[:, parent]
+            lane += flops * float(tested.sum())
+            above = m & tested
+        lane += FLOPS_TRI * float((above.double() @ leaf_tris.double()).sum())
+    warp, above = 0.0, None
+    for (_, parent, flops), a in zip(levels, acc):
+        p = a > 0
         tested = p if parent is None else above[:, parent]
-        ops += flops * float(tested.sum())
+        warp += flops * float(tested.sum())
         above = p & tested
-    ops += FLOPS_TRI * float((above.double() @ leaf_tris.double()).sum())
-    return WARP * ops
+    warp += FLOPS_TRI * float((above.double() @ leaf_tris.double()).sum())
+    return lane, WARP * warp
 
 
-def _k4_walk_ops(records, sargs, width):
-    """_walk_ops summed over the recorded bounces of K4's plain version
-    (sphere_hits calls: ray, live lanes and the final hit of each pixel
-    lane, row-major over the band), with K1's 8x4-pixel warps."""
-    _, _, leafb, leafn, topb, topr, _, _ = sargs
-    levels = [(_sphere_test(topb), None, FLOPS_BOUND),
-              (_sphere_test(leafb), _parents(topr, leafb.shape[1]),
-               FLOPS_BOUND)]
-    ops = 0.0
+def _pixel_walk_ops(records, levels, leaf_tris, width):
+    """_walk_ops summed over the recorded bounces of a fused kernel's plain
+    version (sphere_hits calls: ray, live lanes and, after the walk, the
+    final hit of each pixel lane, row-major over the band), with K1's
+    8x4-pixel warps."""
+    lane = warp = 0.0
     for a, _, h in records:
         ray, alive = a[2], a[3]
         idx = torch.arange(alive.shape[0], device=alive.device)
         row, col = idx // width, idx % width
-        wpr = -(-width // 8)
-        wid = (row // 4) * wpr + col // 8
-        ops += _walk_ops(ray, alive, h[0], wid, int(wid.max()) + 1, levels,
-                         leafn[0])
-    return ops
+        wid = (row // 4) * -(-width // 8) + col // 8
+        r, w = _walk_ops(ray, alive, h[0], wid, int(wid.max()) + 1, levels,
+                         leaf_tris)
+        lane, warp = lane + r, warp + w
+    return lane, warp
+
+
+def _k4_walk_ops(records, sargs, width):
+    """K4's walk: top and leaf bounding spheres, then a leaf's triangles."""
+    _, _, leafb, leafn, topb, topr, _, _ = sargs
+    levels = [(_sphere_test(topb), None, FLOPS_BOUND),
+              (_sphere_test(leafb), _parents(topr, leafb.shape[1]),
+               FLOPS_BOUND)]
+    return _pixel_walk_ops(records, levels, leafn[0], width)
 
 
 def _k3_walk_ops(passes, hits):
@@ -777,7 +803,7 @@ def _k3_walk_ops(passes, hits):
     from raytracer_tpu_torch.ops import tables as tb
     from raytracer_tpu_torch.ops.cuda import wavefront as wfc
     from raytracer_tpu_torch.ops.cuda import wavefront_binned as wb
-    ops = 0.0
+    lane = warp = 0.0
     for (pa, _, _), (ha, _, h) in zip(passes, hits):
         T, state, ray, alive = pa[0], pa[2], ha[2], ha[3]
         levels = [(_box_test(T.topa), None, FLOPS_BOX),
@@ -799,9 +825,10 @@ def _k3_walk_ops(passes, hits):
             cap = torch.minimum(cap, state[wb.ST_EXITB])
         n = alive.shape[0]
         wid = torch.arange(n, device=alive.device) // WARP
-        ops += _walk_ops(ray, alive, torch.minimum(h[0], cap), wid,
+        r, w = _walk_ops(ray, alive, torch.minimum(h[0], cap), wid,
                          n // WARP, levels, T.subn[0])
-    return ops
+        lane, warp = lane + r, warp + w
+    return lane, warp
 
 
 def _sync_ms(fn):
@@ -882,21 +909,28 @@ def phase_mesh_vs_plain(rtt, scenes) -> dict:
 
 
 def _counters():
+    """kernel -> (wrapper module, its counter)."""
     from raytracer_tpu_torch.ops.cuda import wavefront as wfc
     from raytracer_tpu_torch.ops.cuda import wavefront_binned as wb
     from raytracer_tpu_torch.ops.cuda import wavefront_bwd as wbw
     from raytracer_tpu_torch.ops.cuda import wavefront_stream as ws
-    return (wfc, wbw, wb, ws)
+    return {"K1": (wfc, "LAUNCHES"), "K2": (wfc, "STREAM_LAUNCHES"),
+            "K5": (wbw, "LAUNCHES"), "K5s": (wbw, "STREAM_LAUNCHES"),
+            "K3": (wb, "LAUNCHES"), "K4": (ws, "LAUNCHES")}
 
 
 def _zero_counts():
-    for m in _counters():
-        m.LAUNCHES = 0
+    for m, name in _counters().values():
+        setattr(m, name, 0)
 
 
 def _read_counts():
-    return dict(zip(("K1", "K5", "K3", "K4"),
-                    (m.LAUNCHES for m in _counters())))
+    return {k: getattr(m, name) for k, (m, name) in _counters().items()}
+
+
+def _only(**launches):
+    """The launch counts of a run that launched only ``launches``."""
+    return {k: launches.get(k, 0) for k in _counters()}
 
 
 def _lsb_check(name, fb, ref):
@@ -938,8 +972,7 @@ def _session_capped_frame(scene, cam, fb, seed) -> float:
                                     bounce_caps=caps, plain=True)
     log(f"  capped frame (caps {caps}): launches {counts}, new probe "
         f"{len(ops._BINNED_CAPS) != probes}")
-    if counts != {"K1": 0, "K5": 0, "K3": 4, "K4": 0} \
-            or len(ops._BINNED_CAPS) != probes:
+    if counts != _only(K3=4) or len(ops._BINNED_CAPS) != probes:
         raise SystemExit(f"API capped frame: launches {counts}")
     if not torch.equal(capped[0], whole[0]) or capped[1] != whole[1]:
         raise SystemExit("API capped frame differs from the uncapped K3 "
@@ -980,7 +1013,7 @@ def phase_mesh_main_paths(rtt, scenes) -> dict:
         new_probe = len(ops._BINNED_CAPS) == probes + 1
         log(f"  {step}: {ms:.3f} ms, launches {counts}, a new probe "
             f"{new_probe}")
-        if counts != {"K1": 0, "K5": 0, "K3": 4, "K4": 0} or not new_probe:
+        if counts != _only(K3=4) or not new_probe:
             raise SystemExit(f"API session {step}: launches {counts}, new "
                              f"probe {new_probe}")
         if step == "first frame":
@@ -1009,7 +1042,7 @@ def phase_mesh_main_paths(rtt, scenes) -> dict:
         cli_scene = cli._obj_scene(str(path))
     log(f"  cli.main({args + ['obj=<OBJ-10k>']}) rc={rc} in {dt:.3f}s, "
         f"launches {counts}, framebuffer {fb.shape}")
-    if rc != 0 or counts != {"K1": 0, "K5": 0, "K3": 0, "K4": 16}:
+    if rc != 0 or counts != _only(K4=16):
         raise SystemExit(f"CLI obj=: rc {rc}, launches {counts} (expected "
                          f"16 K4 bands)")
     import math
@@ -1147,7 +1180,7 @@ def phase_mesh_throughput(rtt, smi, scenes) -> dict:
         plain3_ms, p3 = _sync_ms(lambda: wb.render_linear_binned(
             *args, **API_SHAPE, seed=1, **kw, plain=True))
     err3 = compare_image("K3 OBJ-10k 512x288", k3, p3)
-    walk3 = _k3_walk_ops(passes.calls, hits.calls)
+    walk3, warp3 = _k3_walk_ops(passes.calls, hits.calls)
     del passes, hits
     n_tops = args[5].shape[1]
     sel = (-(-n_tops // wb.SUPER) if n_tops >= wb.SUPER_MIN_TOPS else n_tops)
@@ -1157,7 +1190,8 @@ def phase_mesh_throughput(rtt, smi, scenes) -> dict:
         f"({[round(x, 3) for x in pass_ms]}), regroups "
         f"{sum(regroup_ms):.3f} ms, plain version {plain3_ms:.3f} ms; "
         f"bound {b3[0]:.4f} ms by {b3[1]} ({moved} bytes, {walk3:.6e} "
-        f"operations of node and triangle tests), "
+        f"operations of the rays' own node and triangle tests; the warps "
+        f"execute {warp3:.6e}, {warp3 / walk3:.2f}x: divergence), "
         f"{100 * b3[0] / sum(pass_ms):.2f}% of the passes' time")
     _, sargs, skw = ops._stream_call(scene, cam, dev, plain=False)
     ms4 = _event_ms(lambda: ws.render_linear_stream_cuda(
@@ -1167,13 +1201,14 @@ def phase_mesh_throughput(rtt, smi, scenes) -> dict:
         plain4_ms, p4 = _sync_ms(lambda: ws.render_linear_stream_ref(
             *sargs, **API_SHAPE, seed=1, **skw))
     err4 = compare_image("K4 OBJ-10k 512x288", k4, p4)
-    walk4 = _k4_walk_ops(hits.calls, sargs, API_SHAPE["width"])
+    walk4, warp4 = _k4_walk_ops(hits.calls, sargs, API_SHAPE["width"])
     del hits
     b4 = bound(k4[1] * (n_sph * FLOPS_SPHERE + FLOPS_SHADE) + walk4,
                nbytes(sargs, skw["top_order"], skw["top_keys"], k4[0]))
     log(f"  K4: {ms4:.3f} ms (CUDA events, median of 5), plain version "
         f"{plain4_ms:.3f} ms; bound {b4[0]:.4f} ms by {b4[1]} "
-        f"({walk4:.6e} operations of node and triangle tests), "
+        f"({walk4:.6e} operations of the rays' own node and triangle "
+        f"tests; the warps execute {warp4:.6e}, {warp4 / walk4:.2f}x), "
         f"{100 * b4[0] / ms4:.2f}% of K4's time")
     # K4 at the CLI's shape: the whole frame in one launch, and 16 bands
     cli_shape = dict(width=512, height=287, samples_per_pixel=16, depth=8,
@@ -1191,6 +1226,344 @@ def phase_mesh_throughput(rtt, smi, scenes) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the big-mesh gradient path: K2 and K5s (the two-level leaf walk)
+# ---------------------------------------------------------------------------
+
+STREAM_SMALL = dict(width=64, height=36, samples_per_pixel=2, depth=4, seed=3,
+                    parity_plane_sign=False)
+# bench.py:184-222: (fields, width, height, spp, depth)
+MESH_GRAD = {"OBJ-10k": (["tri_v0", "mat_color"], 256, 256, 8, 4),
+             "164k": (["tri_v0"], 256, 256, 4, 4)}
+
+
+def _stream_tables(scene, cull, two_level=True):
+    """``diff.walk_tables`` of ``scene`` over ``cull``, detached."""
+    from raytracer_tpu_torch.ops import diff
+    with torch.no_grad():
+        return diff.walk_tables(scene, cull, two_level)
+
+
+def phase_stream_vs_plain(rtt, scenes) -> dict:
+    from raytracer_tpu_torch.ops import diff, tables
+    from raytracer_tpu_torch.ops.cuda import wavefront as wfc
+    from raytracer_tpu_torch.ops.cuda import wavefront_bwd as wb
+    dev = torch.device("cuda")
+    log(f"\nK2 and K5s vs plain versions at {STREAM_SMALL}")
+    cases = {"OBJ-10k, 128-leaf topology (forced)": (
+                 rtt.models.obj_mesh_scene(), 128),
+             "164k, its own topology": (scenes["164k"], None)}
+    out = {"err": {"K2": 0.0, "K5s": 0.0}, "plain_ms": {}}
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for name, ((scene, cam), leaf) in cases.items():
+        scene, cam = scene.to(dev), cam.to(dev)
+        cull = diff.build_tri_cull(scene, leaf)
+        t = _stream_tables(scene, cull)
+        C, Ct = t["clusters"][0].shape[1], t["tops"][0].shape[1]
+        S, T = t["sph"].shape[1], t["packed"].shape[1]
+        log(f"  {name}: {C} leaves of <= "
+            f"{int(max(np.diff(cull.ranges, axis=0)[0]))} triangles, "
+            f"{Ct} tops, needs the two-level walk: "
+            f"{diff._needs_stream(scene)}")
+        cv = tables.camera_vec(cam)
+        kw = dict(STREAM_SMALL, tri_clusters=t["clusters"])
+        skw = dict(kw, tri_stream=t["tops"])
+        k2 = wfc.render_linear_cuda(t["sph"], t["aligned"], cv, **skw)
+        p2_ms, p2 = _sync_ms(lambda: wfc.render_linear_ref(
+            t["sph"], t["aligned"], cv, **skw))
+        out["err"]["K2"] = max(out["err"]["K2"],
+                               compare_image(f"K2 {name}", k2, p2))
+        k1 = wfc.render_linear_cuda(t["sph"], t["packed"], cv, **kw)
+        if not torch.equal(k1[0], k2[0]) or k1[1] != k2[1]:
+            raise SystemExit(f"K2 {name}: not bitwise K1 over the same "
+                             f"leaves")
+        g = torch.randn(STREAM_SMALL["height"], STREAM_SMALL["width"], 3,
+                        device=dev, generator=gen)
+        gargs = (t["sph"], t["aligned"], g, cv)
+        gkw = dict(skw, n_tris_packed=T)
+        k5s = wb.grad_slab_cuda(*gargs, **gkw)
+        p5_ms, p5 = _sync_ms(lambda: wb.grad_slab_ref(*gargs, **gkw))
+        out["err"]["K5s"] = max(out["err"]["K5s"],
+                                _hold_k5(f"K5s {name}", k5s, p5, S, T))
+        k5 = wb.grad_slab_cuda(t["sph"], t["packed"], g, cv, **kw)
+        if not (torch.equal(k5[0], k5s[0]) and torch.equal(k5[1], k5s[1])):
+            raise SystemExit(f"K5s {name}: not bitwise K5 over the same "
+                             f"leaves")
+        out["plain_ms"][name] = (p2_ms, p5_ms)
+        log(f"  {name}: K2 / K5s bitwise K1 / K5 over the same leaves "
+            f"(image, {k2[1]} segments, slab, camera lanes); plain versions "
+            f"K2 {p2_ms:.3f} ms, K5s {p5_ms:.3f} ms")
+    return out
+
+
+def _mesh_grad_setup(rtt, scene, cam, label):
+    """bench.py's gradient configuration of ``label`` on the card: (loss
+    function, start params, shape, target)."""
+    from raytracer_tpu_torch import grad, ops
+    fields, W, H, spp, depth = MESH_GRAD[label]
+    shape = dict(width=W, height=H, samples_per_pixel=spp, depth=depth)
+    with torch.no_grad():
+        target, _ = ops.render_linear_fast(scene, cam, device=scene.device,
+                                           seed=0, **shape)
+    loss_fn = grad.make_loss_fn(scene, cam, target, seed=1,
+                                parity_plane_sign=False, engine="pallas",
+                                **shape)
+    return loss_fn, grad.extract_params(scene, fields), shape, target
+
+
+def _value_and_grad(loss_fn, start):
+    params = {k: v.clone().requires_grad_(True) for k, v in start.items()}
+    loss = loss_fn(params)
+    loss.backward()
+    return loss.detach(), {k: v.grad for k, v in params.items()}
+
+
+def phase_mesh_grad(rtt, scenes) -> dict:
+    from raytracer_tpu_torch import grad
+    dev = torch.device("cuda")
+    walks = {"OBJ-10k": ("K1", "K5"), "164k": ("K2", "K5s")}
+    launches = {k: 0 for k in _counters()}
+    out = {}
+    for label, (fwd, bwd) in walks.items():
+        scene, cam = (x.to(dev) for x in scenes[label])
+        loss_fn, start, shape, _ = _mesh_grad_setup(rtt, scene, cam, label)
+        log(f"\nmesh gradient path: {label} {shape}, params {list(start)}, "
+            f"target seed 0, loss seed 1")
+        _zero_counts()
+        loss, grads = _value_and_grad(loss_fn, start)
+        torch.cuda.synchronize()
+        counts = _read_counts()
+        log(f"  value and gradient: loss {float(loss):.9e}, launches "
+            f"{counts}")
+        if counts != _only(**{fwd: 1, bwd: 1}):
+            raise SystemExit(f"{label} gradient pass: launches {counts}, "
+                             f"expected one {fwd} and one {bwd}")
+        for k, v in grads.items():
+            if v is None or not torch.isfinite(v).all() or not v.any():
+                raise SystemExit(f"{label} gradient pass: bad gradient for "
+                                 f"{k}")
+        # the fit interior gradients support: albedo from half of it
+        p = {"mat_color": grad.extract_params(scene, ["mat_color"])[
+            "mat_color"].mul(0.5).requires_grad_(True)}
+        step = grad.make_train_step(loss_fn, torch.optim.Adam(p.values(),
+                                                              lr=1e-2))
+        _zero_counts()
+        losses = [float(step(p)) for _ in range(3)]
+        torch.cuda.synchronize()
+        fit_counts = _read_counts()
+        with torch.no_grad():
+            final = float(loss_fn(p))
+        log(f"  3 Adam steps at lr 1e-2 recovering mat_color from x0.5: "
+            f"losses {losses}, after: {final:.9e}; launches {fit_counts}")
+        if fit_counts != _only(**{fwd: 3, bwd: 3}):
+            raise SystemExit(f"{label} fit: launches {fit_counts}")
+        if not all(np.isfinite(losses + [final])) or not final < losses[0]:
+            raise SystemExit(f"{label} fit: the loss did not fall "
+                             f"({losses[0]} -> {final})")
+        for k in (fwd, bwd):
+            launches[k] += counts[k] + fit_counts[k]
+        out[label] = dict(loss=float(loss), fit=(losses[0], final))
+    out["launches"] = launches
+    return out
+
+
+def _k2_walk_ops(records, t, width):
+    """K2's walk: top boxes, the leaf boxes of a passing top, then a
+    passing leaf's packed count of triangles."""
+    (leafb, leafr), (topb, topr) = t["clusters"], t["tops"]
+    levels = [(_box_test(topb), None, FLOPS_BOX),
+              (_box_test(leafb), _parents(topr, leafb.shape[1]), FLOPS_BOX)]
+    return _pixel_walk_ops(records, levels, leafr[1] - leafr[0], width)
+
+
+def _stream_kernels(scene, cam, label, start, shape, target, plain=True):
+    """The forward and backward kernels of ``label``'s pass alone, at the
+    pass's own topology, tables and image cotangent: event times, the
+    reduction, the host glue (the tables the pass builds on each call), and
+    with ``plain`` on the two-level walk the plain versions, held against
+    the kernels, with the walk's operations."""
+    from raytracer_tpu_torch import grad
+    from raytracer_tpu_torch.ops import diff, tables
+    from raytracer_tpu_torch.ops.cuda import wavefront as wfc
+    from raytracer_tpu_torch.ops.cuda import wavefront_bwd as wb
+    cull = diff.build_tri_cull(scene)         # the loss's own, cached
+    two = diff._needs_stream(scene)
+    s = grad.apply_params(scene, start)
+    glue_ms, t = _sync_ms(lambda: _stream_tables(s, cull, two))
+    cv = tables.camera_vec(cam)
+    S, T = t["sph"].shape[1], t["packed"].shape[1]
+    kw = dict(shape, seed=1, parity_plane_sign=False,
+              tri_clusters=t["clusters"])
+    if two:
+        fargs = (t["sph"], t["aligned"], cv)
+        kw = dict(kw, tri_stream=t["tops"])
+    else:
+        fargs = (t["sph"], t["packed"], cv)
+    f_ms = _event_ms(lambda: wfc.render_linear_cuda(*fargs, **kw))
+    img, kseg = wfc.render_linear_cuda(*fargs, **kw)
+    g = (2.0 * (img - target) / img.numel()).contiguous()
+    gkw = dict(kw, n_tris_packed=T) if two else kw
+    b_ms = _event_ms(lambda: wb.grad_slab_cuda(fargs[0], fargs[1], g, cv,
+                                               **gkw))
+    slab, cam_l = wb.grad_slab_cuda(fargs[0], fargs[1], g, cv, **gkw)
+    red_ms = _event_ms(lambda: wb.reduce_slab(slab, cam_l, S, T))
+    # each lane-bounce's winner as a scene primitive (spheres, then
+    # triangles by their index in the scene), whatever the topology
+    win = slab[:, :, wb.GP_WIN].long()
+    perm = torch.from_numpy(cull.perm).to(win.device)
+    win = torch.where(win >= S, S + perm[(win - S).clamp_min(0)], win)
+    out = dict(fwd_ms=f_ms, bwd_ms=b_ms, red_ms=red_ms, glue_ms=glue_ms,
+               img=img, winners=win)
+    log(f"  {label}: {'K2' if two else 'K1'} {f_ms:.3f} ms, "
+        f"{'K5s' if two else 'K5'} {b_ms:.3f} ms, winner reduction onto "
+        f"{S + T} rows {red_ms:.3f} ms (CUDA events, median of 5); host "
+        f"glue (packers, leaf bounds{', tops, aligned table' if two else ''}"
+        f") {glue_ms:.3f} ms")
+    if not (two and plain):
+        return out
+    with _Recorder(wfc, "sphere_hits") as hits:
+        p2_ms, p2 = _sync_ms(lambda: wfc.render_linear_ref(*fargs, **kw))
+    out["k2_err"] = compare_image(f"K2 vs plain at {label} {shape}",
+                                  (img, kseg), p2)
+    walk, warp = _k2_walk_ops(hits.calls, t, shape["width"])
+    del hits
+    p5_ms, p5 = _sync_ms(lambda: wb.grad_slab_ref(fargs[0], fargs[1], g, cv,
+                                                  **gkw))
+    out["k5s_err"] = _hold_k5(f"K5s vs plain at {label} {shape}",
+                              (slab, cam_l), p5, S, T)
+    tab = (t["sph"], t["aligned"], t["clusters"], t["tops"], cv)
+    b2 = bound(kseg * (S * FLOPS_SPHERE + FLOPS_SHADE) + walk,
+               nbytes(*tab, img))
+    b5 = bound(kseg * (2 * (S * FLOPS_SPHERE + FLOPS_SHADE) + FLOPS_ADJOINT)
+               + walk, nbytes(*tab, g, slab, cam_l))
+    log(f"  plain versions K2 {p2_ms:.3f} ms, K5s {p5_ms:.3f} ms; the walk "
+        f"{walk:.6e} operations of the rays' own top, leaf and triangle "
+        f"tests (the warps execute {warp:.6e}, {warp / walk:.2f}x: "
+        f"divergence); bounds K2 "
+        f"{b2[0]:.4f} ms by {b2[1]} ({100 * b2[0] / f_ms:.2f}% of its time), "
+        f"K5s {b5[0]:.4f} ms by {b5[1]} ({100 * b5[0] / b_ms:.2f}%)")
+    out.update(k2_plain_ms=p2_ms, k5s_plain_ms=p5_ms, k2_bound=b2,
+               k5s_bound=b5)
+    return out
+
+
+def _profile_pass(label, fn) -> None:
+    """One call of ``fn`` under torch.profiler: its wall time, the device's
+    busy share (the kernels' summed durations: one stream, so they do not
+    overlap) and the kernels that took most of it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    # only the profiler's own setup and parsing are guarded: the pass runs
+    # bare, so a failed launch or check in it fails the script
+    try:
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        prof.start()
+    except Exception as exc:
+        log(f"  {label} profile: not measured ({exc!r})")
+        return
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    try:
+        prof.stop()
+        kernels = [e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA]
+    except Exception as exc:
+        log(f"  {label} profile: not measured ({exc!r})")
+        return
+    if not kernels:
+        log(f"  {label} profile: the profiler saw no device time (not "
+            f"measured)")
+        return
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + \
+            e.time_range.elapsed_us() / 1e3
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    log(f"  {label} profile (one pass under torch.profiler): wall "
+        f"{wall:.3f} ms, {len(kernels)} kernel launches, device busy "
+        f"{busy:.3f} ms ({100 * busy / wall:.1f}%); most device time: "
+        + "; ".join(f"{n[:60]} {t:.3f} ms" for n, t in top))
+
+
+def phase_mesh_grad_throughput(rtt, smi, scenes) -> dict:
+    from raytracer_tpu_torch.ops import diff
+    dev = torch.device("cuda")
+    log(f"\nmesh gradient throughput on {smi}")
+    out = {}
+    for label in MESH_GRAD:
+        scene, cam = (x.to(dev) for x in scenes[label])
+        loss_fn, start, shape, target = _mesh_grad_setup(rtt, scene, cam,
+                                                         label)
+        sec, _ = _median_seconds(lambda _: _value_and_grad(loss_fn, start))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        _value_and_grad(loss_fn, start)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - held
+        paths = shape["width"] * shape["height"] * shape["samples_per_pixel"]
+        log(f"  {label} {shape}: value and gradient median {sec * 1e3:.3f} "
+            f"ms -> {paths / sec:.6e} paths/s; peak device memory of the "
+            f"pass {peak / 2**20:.1f} MiB above the {held / 2**20:.1f} MiB "
+            f"held before it")
+        _profile_pass(label, lambda: _value_and_grad(loss_fn, start))
+        out[label] = dict(paths_per_s=paths / sec, ms=sec * 1e3, peak=peak,
+                          **_stream_kernels(scene, cam, label, start, shape,
+                                            target))
+        rest = sec * 1e3 - sum(out[label][k] for k in ("fwd_ms", "bwd_ms",
+                                                        "red_ms"))
+        log(f"  {label}: the pass outside its two kernels and the reduction "
+            f"{rest:.3f} ms ({100 * rest / (sec * 1e3):.1f}%)")
+    # the walk crossover: each pass again through the other walk
+    real = diff._needs_stream
+    for label, leaf, forced in (("164k", diff.LEAF_SIZE, False),
+                                ("OBJ-10k", diff.STREAM_LEAF_PAD, True)):
+        scene, cam = (x.to(dev) for x in scenes[label])
+        cull = diff.build_tri_cull(scene, leaf)
+        diff._needs_stream = lambda s, f=forced: f
+        try:
+            loss_fn, start, shape, target = _mesh_grad_setup(rtt, scene,
+                                                             cam, label)
+            _zero_counts()
+            _value_and_grad(loss_fn, start)
+            torch.cuda.synchronize()
+            counts = _read_counts()
+            sec, _ = _median_seconds(lambda _: _value_and_grad(loss_fn,
+                                                               start))
+            log(f"  walk crossover, {label} through the other walk:")
+            other = _stream_kernels(scene, cam, label, start, shape,
+                                    target, plain=False)
+        finally:
+            diff._needs_stream = real
+        want = _only(K2=1, K5s=1) if forced else _only(K1=1, K5=1)
+        if counts != want:
+            raise SystemExit(f"crossover {label}: launches {counts}")
+        paths = shape["width"] * shape["height"] * shape["samples_per_pixel"]
+        walk = "two-level" if forced else "one-level"
+        log(f"  walk crossover, {label} {walk} in {cull.ranges.shape[1]} "
+            f"leaves of <= {leaf}: median {sec * 1e3:.3f} ms -> "
+            f"{paths / sec:.6e} paths/s (its own walk: "
+            f"{out[label]['ms']:.3f} ms; kernels "
+            f"{other['fwd_ms']:.3f} + {other['bwd_ms']:.3f} ms against "
+            f"{out[label]['fwd_ms']:.3f} + {out[label]['bwd_ms']:.3f} ms)")
+        out[label]["other_walk_ms"] = sec * 1e3
+        # other leaves permute the columns: exact ties may resolve to
+        # another triangle; count the lanes and pixels that moved
+        d = (other["img"] - out[label]["img"]).abs().amax(dim=-1)
+        moved = other["winners"] != out[label]["winners"]
+        log(f"  {label}, the two topologies: {int(moved.sum())} of "
+            f"{moved.numel()} lane-bounces took another winner, "
+            f"{int((d > 0).sum())} of {d.numel()} pixels differ, max|diff| "
+            f"{float(d.max()):.3e}")
+    return out
+
+
 def main() -> int:
     smi = phase_device()
     rtt = import_port()
@@ -1199,18 +1572,23 @@ def main() -> int:
     max_err = phase_kernel_vs_plain(rtt)
     k5_err = phase_grad_vs_plain(rtt)
     mesh = phase_mesh_vs_plain(rtt, scenes)
+    stream = phase_stream_vs_plain(rtt, scenes)
     launches = phase_main_path(rtt)
     train = phase_train(rtt)
     mesh_main = phase_mesh_main_paths(rtt, scenes)
+    mgrad = phase_mesh_grad(rtt, scenes)
     perf = phase_throughput(rtt, smi)
     gperf = phase_grad_throughput(rtt, smi)
     mperf = phase_mesh_throughput(rtt, smi, scenes)
+    sperf = phase_mesh_grad_throughput(rtt, smi, scenes)
     head = perf["default world 512x512 64spp depth 8"]
+    big = sperf["164k"]
     print(json.dumps({"kernels": [{
         "name": "wavefront_render (K1)", "route": "cuda",
         "source": "raytracer_tpu_torch/csrc/wavefront.cu",
         "replaces": "raytracer_tpu/ops/pallas/wavefront.py:1032",
-        "launches": launches + train["k1_launches"],
+        "launches": launches + train["k1_launches"]
+        + mgrad["launches"]["K1"],
         "max_abs_err": max(max_err, gperf["k1_err"]),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound"][0], "bound_by": head["bound"][1],
@@ -1218,7 +1596,7 @@ def main() -> int:
         "name": "wavefront_grad (K5)", "route": "cuda",
         "source": "raytracer_tpu_torch/csrc/wavefront_bwd.cu",
         "replaces": "raytracer_tpu/ops/pallas/wavefront_bwd.py:964",
-        "launches": train["k5_launches"],
+        "launches": train["k5_launches"] + mgrad["launches"]["K5"],
         "max_abs_err": max(k5_err, gperf["k5_err"]),
         "ms": gperf["ms"], "plain_ms": gperf["plain_ms"],
         "bound_ms": gperf["bound"][0], "bound_by": gperf["bound"][1],
@@ -1240,7 +1618,23 @@ def main() -> int:
                            mesh_main["k4_err"]),
         "ms": mperf["k4"]["ms"], "plain_ms": mperf["k4"]["plain_ms"],
         "bound_ms": mperf["k4"]["bound"][0],
-        "bound_by": mperf["k4"]["bound"][1], "library_ms": None}]}))
+        "bound_by": mperf["k4"]["bound"][1], "library_ms": None}, {
+        "name": "wavefront_render, two-level walk (K2)", "route": "cuda",
+        "source": "raytracer_tpu_torch/csrc/wavefront.cu",
+        "replaces": "raytracer_tpu/ops/pallas/wavefront.py:1015",
+        "launches": mgrad["launches"]["K2"],
+        "max_abs_err": max(stream["err"]["K2"], big["k2_err"]),
+        "ms": big["fwd_ms"], "plain_ms": big["k2_plain_ms"],
+        "bound_ms": big["k2_bound"][0], "bound_by": big["k2_bound"][1],
+        "library_ms": None}, {
+        "name": "wavefront_grad, two-level walk (K5s)", "route": "cuda",
+        "source": "raytracer_tpu_torch/csrc/wavefront_bwd.cu",
+        "replaces": "raytracer_tpu/ops/pallas/wavefront_bwd.py:946",
+        "launches": mgrad["launches"]["K5s"],
+        "max_abs_err": max(stream["err"]["K5s"], big["k5s_err"]),
+        "ms": big["bwd_ms"], "plain_ms": big["k5s_plain_ms"],
+        "bound_ms": big["k5s_bound"][0], "bound_by": big["k5s_bound"][1],
+        "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

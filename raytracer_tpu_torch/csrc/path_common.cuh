@@ -1,6 +1,6 @@
-// Per-ray device code shared by the path-tracing kernels: K1
-// (wavefront.cu), K5 (wavefront_bwd.cu), K4 (wavefront_stream.cu) and K3
-// (wavefront_binned.cu).
+// Per-ray device code shared by the path-tracing kernels: K1 and K2
+// (wavefront.cu), K5 and K5s (wavefront_bwd.cu), K4 (wavefront_stream.cu)
+// and K3 (wavefront_binned.cu).
 //
 // K5 re-traces K1's paths before it sweeps them backward, and K3 and K4
 // must trace the paths K1 traces, so every kernel takes the same hit, draws
@@ -183,11 +183,13 @@ __device__ __forceinline__ void sphere_step(const float *__restrict__ sph,
   }
 }
 
-// one step of _make_tri_body; the normal slots carry the raw plane normal
+// one step of _make_tri_body on column ti of a table with nt columns; the
+// normal slots carry the raw plane normal.  With TRACK a winner records
+// `win`, its id (S + its column of the packed table)
 template <bool PARITY, bool TRACK>
 __device__ __forceinline__ void tri_step(const float *__restrict__ tri, int nt,
                                          int ti, const Ray &r, Hit &h,
-                                         int n_sph) {
+                                         float win) {
   const float tnx = tri[TRI_NX * nt + ti];
   const float tny = tri[TRI_NY * nt + ti];
   const float tnz = tri[TRI_NZ * nt + ti];
@@ -227,21 +229,50 @@ __device__ __forceinline__ void tri_step(const float *__restrict__ tri, int nt,
     h.fz = t_met ? textra : 0.0f;
     h.ir = t_die ? textra : 1.0f;
     if (TRACK) {
-      h.win = (float)n_sph + (float)ti;
+      h.win = win;
       h.rr = td;
     }
   }
 }
 
-// closest hit over the flat sphere table, then the triangles (flat, or
-// culled warp by warp through cluster AABBs).  Loop bounds are
-// warp-uniform: every lane reaches every __any_sync.
+// leaf slot width of the leaf-aligned table of the two-level walk: leaf ci's
+// triangles sit in columns [128 ci, 128 ci + n) (ops/diff.py)
+constexpr int STREAM_LEAF_PAD = 128;
+
+// closest hit over the triangles: flat; culled warp by warp through leaf
+// AABBs (one level); or, with n_tops > 0, the two-level walk of
+// _streamed_tri_walk: tops of consecutive leaves gate the leaf tests, and a
+// passing leaf's packed count of columns is read from its 128-column slot of
+// the leaf-aligned table.  Winner ids are n_sph + the packed column either
+// way, so both walks over the same leaves take the same hits.  Loop bounds
+// are warp-uniform: every lane reaches every __any_sync.
 template <bool PARITY, bool TRACK>
 __device__ __forceinline__ void triangle_hits(
     const float *__restrict__ tri, int n_tri, const float *__restrict__ tric_b,
-    const int *__restrict__ tric_r, int n_tric, int n_sph, const Ray &r,
-    bool alive, Hit &h) {
-  if (n_tric > 0) {
+    const int *__restrict__ tric_r, int n_tric,
+    const float *__restrict__ trit_b, const int *__restrict__ trit_r,
+    int n_tops, int n_sph, const Ray &r, bool alive, Hit &h) {
+  if (n_tops > 0) {
+    const float ivx = inv_dir(r.dx), ivy = inv_dir(r.dy), ivz = inv_dir(r.dz);
+    for (int tci = 0; tci < n_tops; ++tci) {
+      const bool top_p =
+          alive && aabb_test(trit_b, n_tops, tci, r, ivx, ivy, ivz, h.t);
+      if (!__any_sync(FULL_MASK, top_p)) continue;
+      const int c1 = trit_r[n_tops + tci];
+      for (int ci = trit_r[tci]; ci < c1; ++ci) {
+        const bool possible =
+            alive && aabb_test(tric_b, n_tric, ci, r, ivx, ivy, ivz, h.t);
+        if (__any_sync(FULL_MASK, possible)) {
+          const int p0 = tric_r[ci];
+          const int n = tric_r[n_tric + ci] - p0;
+          const int col0 = ci * STREAM_LEAF_PAD;
+          for (int j = 0; j < n; ++j)
+            tri_step<PARITY, TRACK>(tri, n_tri, col0 + j, r, h,
+                                    (float)n_sph + (float)(p0 + j));
+        }
+      }
+    }
+  } else if (n_tric > 0) {
     const float ivx = inv_dir(r.dx), ivy = inv_dir(r.dy), ivz = inv_dir(r.dz);
     for (int ci = 0; ci < n_tric; ++ci) {
       const bool possible =
@@ -249,12 +280,14 @@ __device__ __forceinline__ void triangle_hits(
       if (__any_sync(FULL_MASK, possible)) {
         const int t1 = tric_r[n_tric + ci];
         for (int ti = tric_r[ci]; ti < t1; ++ti)
-          tri_step<PARITY, TRACK>(tri, n_tri, ti, r, h, n_sph);
+          tri_step<PARITY, TRACK>(tri, n_tri, ti, r, h,
+                                  (float)n_sph + (float)ti);
       }
     }
   } else {
     for (int ti = 0; ti < n_tri; ++ti)
-      tri_step<PARITY, TRACK>(tri, n_tri, ti, r, h, n_sph);
+      tri_step<PARITY, TRACK>(tri, n_tri, ti, r, h,
+                              (float)n_sph + (float)ti);
   }
 }
 

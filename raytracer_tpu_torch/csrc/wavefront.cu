@@ -1,15 +1,20 @@
-// K1: the fused forward path-trace kernel, hand-written for Hopper (sm_90a).
+// K1 and K2: the fused forward path-trace kernel, hand-written for Hopper
+// (sm_90a).
 //
 // Replaces the TPU kernel raytracer_tpu/ops/pallas/wavefront.py
-// render_linear_pallas / _make_kernel (the pl.pallas_call at :1032), with
-// its helpers _block_pixel_setup, _pcg3d/_u01, _sphere_loop + _aabb_test,
+// render_linear_pallas / _make_kernel: K1 is the pl.pallas_call at :1032,
+// K2 the one at :1015 (stream_tops > 0: the two-level _streamed_tri_walk at
+// :708 over a leaf-aligned triangle table).  Both are this kernel, with the
+// helpers _block_pixel_setup, _pcg3d/_u01, _sphere_loop + _aabb_test,
 // _sphere_normals, _make_tri_body, _resolve_tri_normals and
-// _scatter_bookkeep.  It computes the same thing: per pixel, spp camera
-// samples with pcg3d jitter (site 0), a bounce loop with early exit, closest
-// hit over spheres and triangles (flat, or culled by cluster AABBs), the
-// material scatter with pcg3d draws at site 1+b, the sky, and the
-// throughput/radiance bookkeeping; outputs are the mean RGB per pixel and a
-// per-pixel count of traced segments.
+// _scatter_bookkeep; K2 is a launch with n_tops > 0, a warp-uniform runtime
+// branch of triangle_hits (path_common.cuh), not a second template.  It
+// computes the same thing: per pixel, spp camera samples with pcg3d jitter
+// (site 0), a bounce loop with early exit, closest hit over spheres and
+// triangles (flat, culled by leaf AABBs, or in K2 culled by tops of 16
+// leaves and then by the leaves), the material scatter with pcg3d draws at
+// site 1+b, the sky, and the throughput/radiance bookkeeping; outputs are
+// the mean RGB per pixel and a per-pixel count of traced segments.
 //
 // What bounds it on the card: FP32 ALU issue and branch divergence, not
 // bytes.  Each ray segment costs ~25 flops per sphere and ~40 per triangle
@@ -28,6 +33,12 @@
 //    the AABB slab test and the warp grinds a cluster's members if any live
 //    lane might hit (__any_sync).  Loop bounds stay warp-uniform, so every
 //    lane, live or not, reaches every __any_sync;
+//  * K2 reads a passing leaf's triangles straight from its slot of the
+//    leaf-aligned table in device memory (the column is warp-uniform, so each
+//    load is a broadcast; the 164k-triangle table's 25 MB stay in the 50 MB
+//    L2) instead of the TPU's DMA into scalar memory.  Its winners are the
+//    packed columns, so K2 over a topology takes K1's hits over the same
+//    leaves bit for bit;
 //  * the bounce loop ends when no lane of the warp is alive; dead lanes
 //    change nothing, so this is the per-pixel result of the full loop.
 //
@@ -51,9 +62,11 @@ struct Params {
   const int *sphc_r;
   const float *tric_b;
   const int *tric_r;
+  const float *trit_b;
+  const int *trit_r;
   float *mean;
   int *segs;
-  int n_sph, n_tri, n_sphc, n_tric;
+  int n_sph, n_tri, n_sphc, n_tric, n_tops;
   int width, height, shard_rows, row_offset, row_stride;
   unsigned seed_word;
   int spp, depth;
@@ -102,7 +115,8 @@ __global__ void __launch_bounds__(THREADS)
       sphere_hits(sph, p.n_sph, p.sphc_b, p.sphc_r, p.n_sphc, r, alive, h);
       // triangles (common.rs:124-166 via edge constants)
       triangle_hits<PARITY, false>(tri, p.n_tri, p.tric_b, p.tric_r, p.n_tric,
-                                   p.n_sph, r, alive, h);
+                                   p.trit_b, p.trit_r, p.n_tops, p.n_sph, r,
+                                   alive, h);
       resolve_tri_normals(h);
       alive = shade(pix_u, s, b, r, h, alive, c);
     }
@@ -122,18 +136,23 @@ __global__ void __launch_bounds__(THREADS)
 
 }  // namespace
 
-// Launch K1 on `stream`.  Tables are row-major (ROWS, N) float32 device
-// arrays; cluster tables may be null with a count of 0.  Writes mean
+// Launch K1, or K2 when n_tops > 0, on `stream`.  Tables are row-major
+// (ROWS, N) float32 device arrays; cluster tables may be null with a count
+// of 0.  K2 takes the leaf-aligned triangle table (n_tri = 128 x leaves
+// columns), the leaf bounds and PACKED ranges as triangle clusters, and the
+// top bounds (6, n_tops) and leaf ranges (2, n_tops).  Writes mean
 // [shard_rows, width, 3] float32 and segs [shard_rows, width] int32.
 // Returns cudaGetLastError() after the launch.
 extern "C" int rt_wavefront_render(
     const float *sph, int n_sph, const float *tri, int n_tri, const float *cam,
     const float *sphc_b, const int *sphc_r, int n_sphc, const float *tric_b,
-    const int *tric_r, int n_tric, float *mean, int *segs, int width,
+    const int *tric_r, int n_tric, const float *trit_b, const int *trit_r,
+    int n_tops, float *mean, int *segs, int width,
     int height, unsigned int seed_word, int row_offset, int row_stride,
     int shard_rows, int spp, int depth, float inv_spp, int parity_plane_sign,
     void *stream) {
-  if (width < 1 || height < 1 || shard_rows < 1 || n_sph < 1 || n_tri < 1)
+  if (width < 1 || height < 1 || shard_rows < 1 || n_sph < 1 || n_tri < 1 ||
+      (n_tops > 0 && (n_tric < 1 || n_tri < n_tric * STREAM_LEAF_PAD)))
     return (int)cudaErrorInvalidValue;
   Params p;
   p.sph = sph;
@@ -143,12 +162,15 @@ extern "C" int rt_wavefront_render(
   p.sphc_r = sphc_r;
   p.tric_b = tric_b;
   p.tric_r = tric_r;
+  p.trit_b = trit_b;
+  p.trit_r = trit_r;
   p.mean = mean;
   p.segs = segs;
   p.n_sph = n_sph;
   p.n_tri = n_tri;
   p.n_sphc = n_sphc;
   p.n_tric = n_tric;
+  p.n_tops = n_tops;
   p.width = width;
   p.height = height;
   p.shard_rows = shard_rows;

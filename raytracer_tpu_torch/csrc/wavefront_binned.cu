@@ -169,7 +169,7 @@ __device__ __forceinline__ void binned_walk(const Params &p, const Ray &r,
             continue;
           const int base = li * SUB, n = p.subn[li];
           for (int ti = 0; ti < n; ++ti)
-            tri_step<false, false>(p.tri, n_cols, base + ti, r, h, 0);
+            tri_step<false, false>(p.tri, n_cols, base + ti, r, h, 0.0f);
         }
       }
     }

@@ -1,10 +1,17 @@
-// K5: the backward path-trace kernel (the adjoint of K1), hand-written for
-// Hopper (sm_90a).
+// K5 and K5s: the backward path-trace kernel (the adjoint of K1 and K2),
+// hand-written for Hopper (sm_90a).
 //
 // Replaces the TPU kernel raytracer_tpu/ops/pallas/wavefront_bwd.py
-// render_grad_pallas / _make_bwd_kernel (the pl.pallas_call at :964).  It
-// computes the same thing: per pixel and sample, a forward sweep that
-// re-traces K1's path and keeps 22 residual planes per bounce (ray,
+// render_grad_pallas / _make_bwd_kernel: K5 is the pl.pallas_call at :964,
+// K5s the one at :946 (stream_tops > 0: K2's two-level walk over the
+// leaf-aligned table, :284-294).  K5s is a launch of this kernel with
+// n_tops > 0 (a warp-uniform runtime branch of triangle_hits, not a second
+// template); its winner ids are packed columns (n_sph + ranges[0][ci] + j),
+// as make_tri_body(read, tric_r_ref[0, ci]) gives them, and the adjoint
+// reads the winner's plane from its residuals, never from the table, so
+// nothing after the walk knows which layout it ran on.  It computes the
+// same thing: per pixel and sample, a forward sweep that re-traces K1's
+// (K2's) path and keeps 22 residual planes per bounce (ray,
 // throughput, hit t, winner id, alive, the winner's centre or plane normal,
 // radius or plane d, kind, albedo, fuzz, ir), then a backward sweep over
 // the bounces in reverse that propagates the image cotangent by hand:
@@ -27,8 +34,9 @@
 //  * the same per-ray code as K1 (path_common.cuh: hit steps, tie rules,
 //    pcg3d draws, scatter), so each lane re-traces exactly K1's path;
 //  * spheres are scanned flat (the differentiable path packs them without a
-//    permutation); triangles cull by cluster AABBs with K1's warp rule, every
-//    lane reaching every __any_sync;
+//    permutation); triangles cull by leaf AABBs with K1's warp rule (K5s: by
+//    tops of leaves, then leaves, as K2), every lane reaching every
+//    __any_sync;
 //  * residual storage: a per-thread array of MAX_DEPTH x 22 floats.  It
 //    lives in local memory, which the hardware interleaves across the lanes
 //    of a warp (coalesced like a plane-major scratch buffer, with no
@@ -73,10 +81,12 @@ struct GradParams {
   const float *cam;
   const float *tric_b;
   const int *tric_r;
+  const float *trit_b;
+  const int *trit_r;
   const float *g;   // image cotangent [shard_rows, width, 3]
   float *slab;      // [spp, depth, GRAD_PLANES, shard_rows * width]
   float *cam_lanes; // [12, shard_rows * width]
-  int n_sph, n_tri, n_tric;
+  int n_sph, n_tri, n_tric, n_tops;
   int width, height, shard_rows, row_offset, row_stride;
   unsigned seed_word;
   int spp, depth;
@@ -170,7 +180,8 @@ __global__ void __launch_bounds__(THREADS)
       for (int si = 0; si < p.n_sph; ++si)
         sphere_step<true>(sph, p.n_sph, si, r, h);
       triangle_hits<PARITY, true>(tri, p.n_tri, p.tric_b, p.tric_r, p.n_tric,
-                                  p.n_sph, r, alive, h);
+                                  p.trit_b, p.trit_r, p.n_tops, p.n_sph, r,
+                                  alive, h);
       const bool is_tri = h.win >= S - 0.5f;
       float *rs = res[b];
       rs[RS_OX] = r.ox;
@@ -575,20 +586,23 @@ __global__ void __launch_bounds__(THREADS)
 
 }  // namespace
 
-// Launch K5 on `stream`.  Tables as for K1 (spheres flat, triangle clusters
-// optional: null with a count of 0); g is the image cotangent [shard_rows,
-// width, 3].  Writes slab [spp, depth, 10, shard_rows * width] and cam_lanes
-// [12, shard_rows * width] float32.  Returns cudaGetLastError() after the
-// launch, or cudaErrorInvalidValue for a shape it does not take (depth past
-// MAX_DEPTH included).
+// Launch K5, or K5s when n_tops > 0, on `stream`.  Tables as for K1 and K2
+// (spheres flat; triangle clusters optional: null with a count of 0; K5s
+// takes K2's leaf-aligned table and tops); g is the image cotangent
+// [shard_rows, width, 3].  Writes slab [spp, depth, 10, shard_rows * width]
+// and cam_lanes [12, shard_rows * width] float32.  Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for a shape
+// it does not take (depth past MAX_DEPTH included).
 extern "C" int rt_wavefront_grad(
     const float *sph, int n_sph, const float *tri, int n_tri, const float *cam,
-    const float *tric_b, const int *tric_r, int n_tric, const float *g,
+    const float *tric_b, const int *tric_r, int n_tric, const float *trit_b,
+    const int *trit_r, int n_tops, const float *g,
     float *slab, float *cam_lanes, int width, int height,
     unsigned int seed_word, int row_offset, int row_stride, int shard_rows,
     int spp, int depth, float inv_spp, int parity_plane_sign, void *stream) {
   if (width < 1 || height < 1 || shard_rows < 1 || n_sph < 1 || n_tri < 1 ||
-      spp < 1 || depth < 0 || depth > MAX_DEPTH)
+      spp < 1 || depth < 0 || depth > MAX_DEPTH ||
+      (n_tops > 0 && (n_tric < 1 || n_tri < n_tric * STREAM_LEAF_PAD)))
     return (int)cudaErrorInvalidValue;
   GradParams p;
   p.sph = sph;
@@ -596,12 +610,15 @@ extern "C" int rt_wavefront_grad(
   p.cam = cam;
   p.tric_b = tric_b;
   p.tric_r = tric_r;
+  p.trit_b = trit_b;
+  p.trit_r = trit_r;
   p.g = g;
   p.slab = slab;
   p.cam_lanes = cam_lanes;
   p.n_sph = n_sph;
   p.n_tri = n_tri;
   p.n_tric = n_tric;
+  p.n_tops = n_tops;
   p.width = width;
   p.height = height;
   p.shard_rows = shard_rows;

@@ -84,7 +84,7 @@ __device__ __forceinline__ void stream_walk(const Params &p, const Ray &r,
         continue;
       const int base = li * LEAF, n = p.leafn[li];
       for (int ti = 0; ti < n; ++ti)
-        tri_step<false, false>(p.tri, n_cols, base + ti, r, h, 0);
+        tri_step<false, false>(p.tri, n_cols, base + ti, r, h, 0.0f);
     }
   }
 }

@@ -12,7 +12,13 @@ Engines of ``make_loss_fn`` (the JAX names, mapped onto the port):
   * ``"xla"``    -- autograd through the port's wavefront renderer
     (``render.render_linear``), on the scene's device;
   * ``"pallas"`` -- ``ops.diff.render_linear_diff``: K1 forward, K5
-    backward (their plain PyTorch versions on CPU tensors);
+    backward (their plain PyTorch versions on CPU tensors).  Under the
+    correct plane sign triangles cull through ``ops.diff.build_tri_cull``
+    (built once here, at its default leaf size): a mesh whose packed
+    tables pass the JAX package's table budget (the bench's 164k-triangle
+    scene) takes the two-level walk of K2 and K5s in leaves of 128, every
+    other scene (OBJ-10k included) one level of leaves of 64 through K1
+    and K5;
   * ``"auto"``   -- ``"pallas"`` on a CUDA device, ``"xla"`` on the CPU,
     as the JAX package picks the kernels on a TPU and XLA on a CPU.
 

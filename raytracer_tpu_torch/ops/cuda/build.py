@@ -107,6 +107,7 @@ def load() -> ctypes.CDLL:
     fn = lib.rt_wavefront_render
     fn.argtypes = [p, i, p, i, p,        # sph, n_sph, tri, n_tri, cam
                    p, p, i, p, p, i,     # sphere / triangle clusters
+                   p, p, i,              # tops of the two-level walk (K2)
                    p, p,                 # mean, segs
                    i, i, u, i, i, i,     # width .. shard_rows
                    i, i, f, i, p]        # spp, depth, inv_spp, parity, stream
@@ -114,6 +115,7 @@ def load() -> ctypes.CDLL:
     fn = lib.rt_wavefront_grad
     fn.argtypes = [p, i, p, i, p,        # sph, n_sph, tri, n_tri, cam
                    p, p, i,              # triangle clusters
+                   p, p, i,              # tops of the two-level walk (K5s)
                    p, p, p,              # g_image, slab, cam_lanes
                    i, i, u, i, i, i,     # width .. shard_rows
                    i, i, f, i, p]        # spp, depth, inv_spp, parity, stream

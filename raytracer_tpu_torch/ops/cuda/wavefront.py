@@ -1,29 +1,38 @@
-"""K1, the fused forward render kernel: CUDA wrapper and plain version.
+"""K1 and K2, the fused forward render kernel: CUDA wrapper and plain
+version.
 
 ``render_linear_cuda`` launches the hand-written CUDA kernel in
 ``raytracer_tpu_torch/csrc/wavefront.cu``, which replaces the TPU kernel
 ``raytracer_tpu/ops/pallas/wavefront.py`` ``render_linear_pallas`` /
 ``_make_kernel``: the whole path trace of a frame (or of a row band) fused
-into one launch, one thread per pixel.  On the card it is bound by FP32 ALU
-issue and branch divergence, not by bytes: the scene tables stay in L1/L2
-and device memory sees one write of the image.  The kernel keeps all ray
-state in registers, gives each warp a compact 8x4 pixel tile so its rays
-take the same cluster-culling decisions, and ends a warp's bounce loop when
-none of its rays is alive.
+into one launch, one thread per pixel.  K2 is the same kernel with
+``tri_stream``: the two-level walk of ``_streamed_tri_walk`` over a
+leaf-aligned triangle table (``ops.diff.tri_stream_table``), the
+differentiable forward of meshes past the table budget.  On the card it
+is bound by FP32 ALU throughput and branch divergence, not by bytes: the
+scene tables stay in L1/L2 and device memory sees one write of the image.
+The kernel keeps all ray state in registers, gives each warp a compact 8x4
+pixel tile so its rays take the same cluster-culling decisions, and ends a
+warp's bounce loop when none of its rays is alive.
 
 ``render_linear_ref`` is the plain PyTorch version: vectorised over pixels,
-a Python loop over primitives, the kernel's operation order, and the
-per-ray cluster test applied as a mask.  It runs wherever its tensors are
-(the CPU tests, and on the card to check the kernel).
+a Python loop over primitives (K2's: over tops, a top's columns at once),
+the kernel's operation order, and the per-ray cluster test applied as a
+mask.  It runs wherever its tensors are (the CPU tests, and on the card to
+check the kernel).
 
 The wrapper uses the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises.  ``LAUNCHES`` counts the
-wrapper's kernel launches.
+wrapper's K1 launches, ``STREAM_LAUNCHES`` its K2 launches.
 
 Arguments of both (the keywords of ``render_linear_pallas``):
   sph (SPH_ROWS, S) f32, tri (TRI_ROWS, T) f32, cam_vec (12,) f32 from
   ``ops.tables``; sph_clusters / tri_clusters: optional (bounds (6, C) f32,
   ranges (2, C) int32) matching tables packed with the cluster ``perm``;
+  tri_stream: optional (top bounds (6, Ct) f32, top ranges (2, Ct) int32
+  over the leaves) of the two-level walk; ``tri`` is then the leaf-aligned
+  (TRI_ROWS_PAD, 128 C) table and ``tri_clusters`` the leaf bounds with
+  their ranges in the PACKED table, so winners are packed columns;
   shard_rows / row_offset / row_stride render rows ``row_offset +
   k * row_stride`` for k < shard_rows.  Pixel ids, and so the random
   streams, depend only on the global (row, col): a banded render is bitwise
@@ -39,9 +48,13 @@ import torch
 from .. import tables
 from ... import rng
 
-__all__ = ["LAUNCHES", "render_linear_cuda", "render_linear_ref"]
+__all__ = ["LAUNCHES", "STREAM_LAUNCHES", "STREAM_LEAF_PAD",
+           "render_linear_cuda", "render_linear_ref"]
 
 LAUNCHES = 0
+STREAM_LAUNCHES = 0
+# columns of a leaf's slot in the two-level walk's leaf-aligned table
+STREAM_LEAF_PAD = 128
 
 _F32 = torch.float32
 # float32 values of the kernel's constants (wavefront.cu)
@@ -89,9 +102,26 @@ def check_clusters(name, cl, n, device):
         raise ValueError(f"{name} ranges fall outside the table")
 
 
+def check_stream(tri, tri_clusters, tri_stream, device):
+    """The two-level walk's tables: a leaf-aligned ``tri`` of 128 columns
+    per leaf, leaves of at most 128 triangles, tops over the leaves."""
+    if tri_clusters is None:
+        raise ValueError("tri_stream needs the leaf clusters (tri_clusters)")
+    bounds, ranges = tri_clusters
+    n_leaves = bounds.shape[1]
+    if tri.shape[1] != STREAM_LEAF_PAD * n_leaves:
+        raise ValueError(f"the leaf-aligned table has {tri.shape[1]} "
+                         f"columns, expected {STREAM_LEAF_PAD} x {n_leaves}")
+    check_clusters("tri_stream", tri_stream, n_leaves, device)
+    counts = ranges[1] - ranges[0]
+    if int(counts.min()) < 0 or int(counts.max()) > STREAM_LEAF_PAD:
+        raise ValueError(f"a leaf holds more than {STREAM_LEAF_PAD} "
+                         f"triangles")
+
+
 def _check_inputs(sph, tri, cam_vec, sph_clusters, tri_clusters, *, width,
                   height, samples_per_pixel, depth, parity_plane_sign,
-                  shard_rows, row_offset, row_stride) -> int:
+                  shard_rows, row_offset, row_stride, tri_stream=None) -> int:
     """Raise on anything the kernel cannot take; return shard_rows."""
     if tri_clusters is not None and parity_plane_sign:
         raise ValueError(
@@ -99,11 +129,14 @@ def _check_inputs(sph, tri, cam_vec, sph_clusters, tri_clusters, *, width,
             "(bounce-ray hits escape vertex-derived bounds)")
     device = sph.device
     check_sphere_tables(sph, sph_clusters, device)
-    check_tensor(tri, "tri", _F32, (tables.TRI_ROWS, None), device)
+    rows = tables.TRI_ROWS if tri_stream is None else tables.TRI_ROWS_PAD
+    check_tensor(tri, "tri", _F32, (rows, None), device)
     check_tensor(cam_vec, "cam_vec", _F32, (12,), device)
     check_clusters("tri_clusters", tri_clusters, tri.shape[1], device)
     if tri.shape[1] < 1:
         raise ValueError("tables need at least one (padding) column")
+    if tri_stream is not None:
+        check_stream(tri, tri_clusters, tri_stream, device)
     return check_shape(width=width, height=height,
                        samples_per_pixel=samples_per_pixel, depth=depth,
                        shard_rows=shard_rows, row_offset=row_offset,
@@ -132,20 +165,22 @@ def render_linear_cuda(sph, tri, cam_vec, *, width, height,
                        samples_per_pixel, depth, seed=0,
                        parity_plane_sign=True, sph_clusters=None,
                        tri_clusters=None, shard_rows=None, row_offset=0,
-                       row_stride=1):
-    """Mean linear radiance [shard_rows, W, 3] + segment count through K1
-    (the plain version for CPU tensors)."""
-    global LAUNCHES
+                       row_stride=1, tri_stream=None):
+    """Mean linear radiance [shard_rows, W, 3] + segment count through K1,
+    or K2 with ``tri_stream`` (the plain version for CPU tensors)."""
+    global LAUNCHES, STREAM_LAUNCHES
     kw = dict(width=width, height=height,
               samples_per_pixel=samples_per_pixel, depth=depth,
               parity_plane_sign=parity_plane_sign, shard_rows=shard_rows,
-              row_offset=row_offset, row_stride=row_stride)
+              row_offset=row_offset, row_stride=row_stride,
+              tri_stream=tri_stream)
+    name = "K1" if tri_stream is None else "K2"
     if sph.device.type == "cpu":
         return render_linear_ref(sph, tri, cam_vec, seed=seed,
                                  sph_clusters=sph_clusters,
                                  tri_clusters=tri_clusters, **kw)
     if sph.device.type != "cuda":
-        raise ValueError(f"K1 runs on CUDA tensors, got {sph.device}")
+        raise ValueError(f"{name} runs on CUDA tensors, got {sph.device}")
     shard_rows = _check_inputs(sph, tri, cam_vec, sph_clusters,
                                tri_clusters, **kw)
     from . import build
@@ -157,6 +192,7 @@ def render_linear_cuda(sph, tri, cam_vec, *, width, height,
                                                                     None)
     tric_b, tric_r = tri_clusters if tri_clusters is not None else (None,
                                                                     None)
+    trit_b, trit_r = tri_stream if tri_stream is not None else (None, None)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -166,14 +202,18 @@ def render_linear_cuda(sph, tri, cam_vec, *, width, height,
             ptr(sph), sph.shape[1], ptr(tri), tri.shape[1], ptr(cam_vec),
             ptr(sphc_b), ptr(sphc_r), 0 if sphc_b is None else sphc_b.shape[1],
             ptr(tric_b), ptr(tric_r), 0 if tric_b is None else tric_b.shape[1],
+            ptr(trit_b), ptr(trit_r), 0 if trit_b is None else trit_b.shape[1],
             ptr(mean), ptr(segs), width, height, rng.seed_word(seed),
             row_offset, row_stride, shard_rows, samples_per_pixel, depth,
             _inv_spp(samples_per_pixel), int(bool(parity_plane_sign)),
             torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"K1 (rt_wavefront_render) launch failed: "
+        raise RuntimeError(f"{name} (rt_wavefront_render) launch failed: "
                            f"cudaError {rc}")
-    LAUNCHES += 1
+    if tri_stream is None:
+        LAUNCHES += 1
+    else:
+        STREAM_LAUNCHES += 1
     return mean, int(torch.sum(segs, dtype=torch.int64))
 
 
@@ -280,7 +320,8 @@ def _closest_hit(table_h, clusters_h, step, ray, h, alive):
             step(table_h[i], ray, h, possible)
 
 
-def tri_block_hits(tri, cols, ray, h, rank, rank_base, sel):
+def tri_block_hits(tri, cols, ray, h, rank, rank_base, sel, mask=None,
+                   wins=None):
     """Closest triangle hit over the columns ``cols`` of a leaf-aligned
     table ``tri`` (correct plane sign) for the rays ``sel``, all columns at
     once, taken as the kernels' sequential scan with ``t <= t_best`` takes
@@ -288,18 +329,21 @@ def tri_block_hits(tri, cols, ray, h, rank, rank_base, sel):
     visit rank of ``cols[j]`` for ray i is ``rank_base[i] + j`` (an int or
     one per ray of ``sel``); ``rank`` holds each ray's winner's rank (-1
     for a sphere or none), so a triangle beats a sphere at equal t.
-    Updates ``h`` and ``rank`` in place, in chunks of rays that keep each
-    temporary near 4M elements; every operation rounds as in
-    ``tri_step``."""
+    ``mask`` [len(sel), len(cols)] leaves out the columns a ray does not
+    test.  With ``wins`` (the float winner id of each column) ``h`` is K5's
+    record: the raw kind, then the winner id and the plane d.  Updates
+    ``h`` and ``rank`` in place, in chunks of rays that keep each temporary
+    near 4M elements; every operation rounds as in ``tri_step``."""
     T = tri[:, cols]
     step = max(1, (1 << 22) // max(cols.shape[0], 1))
     for i in range(0, sel.shape[0], step):
         base = (rank_base[i:i + step] if isinstance(rank_base, torch.Tensor)
                 else rank_base)
-        _tri_block(tri, T, cols, ray, h, rank, base, sel[i:i + step])
+        _tri_block(tri, T, cols, ray, h, rank, base, sel[i:i + step],
+                   None if mask is None else mask[i:i + step], wins)
 
 
-def _tri_block(tri, T, cols, ray, h, rank, rank_base, sel):
+def _tri_block(tri, T, cols, ray, h, rank, rank_base, sel, mask, wins):
     ox, oy, oz, dx, dy, dz = (r[sel][:, None] for r in ray)
     tnx, tny, tnz, td = (T[k][None, :] for k in range(4))
     nd = tnx * dx + tny * dy + tnz * dz
@@ -312,6 +356,8 @@ def _tri_block(tri, T, cols, ray, h, rank, rank_base, sel):
         gx, gy, gz, w = (T[4 + 4 * k + q][None, :] for q in range(4))
         e = ox * gx + oy * gy + oz * gz + t * (dx * gx + dy * gy + dz * gz) - w
         ok = ok & (e >= 0.0)
+    if mask is not None:
+        ok = ok & mask
     tm = torch.where(ok, t, float("inf"))
     t_min = tm.min(dim=1).values
     j = torch.arange(cols.shape[0], device=tm.device)
@@ -325,13 +371,67 @@ def _tri_block(tri, T, cols, ray, h, rank, rank_base, sel):
     textra = tri[tables.TRI_EXTRA][win]
     t_met = (tkind >= 0.5) & (tkind < 1.5)
     t_die = (tkind >= 1.5) & (tkind < 2.5)
-    vals = (t_min, tri[0][win], tri[1][win], tri[2][win], tkind + 8.0,
+    vals = (t_min, tri[0][win], tri[1][win], tri[2][win],
+            tkind + 8.0 if wins is None else tkind,
             tri[tables.TRI_AR][win], tri[tables.TRI_AG][win],
             tri[tables.TRI_AB][win], torch.where(t_met, textra, 0.0),
             torch.where(t_die, textra, 1.0))
+    if wins is not None:
+        vals += (wins[last.clamp_min(0)], tri[tables.TRI_D][win])
     for k, val in enumerate(vals):
         h[k][sel] = torch.where(better, val, h[k][sel])
     rank[sel] = torch.where(better, cand, r_best)
+
+
+def stream_tri_stage(tri, tri_clusters, tri_stream, n_sph=None):
+    """The plain version of the two-level walk (K2's; K5s's with ``n_sph``,
+    which fills K5's hit record, winners n_sph + packed column): returns
+    ``stage(ray, h, alive, _b=None)``, updating ``h`` in place.  Per top in
+    order, the rays that pass its box test their leaves' boxes at once and
+    grind the columns of the leaves they pass, all of a top's columns in
+    one ``tri_block_hits`` with the visit rank (top, slot column).  The
+    culling distance is each ray's closest hit when the top begins, never
+    below the kernel's, and the bounds are conservative, so the hits are
+    the kernel's."""
+    leaf_b, leaf_r = tri_clusters
+    top_h, top_r = _host_clusters(tri_stream)
+    starts, ends = leaf_r.cpu().tolist()
+    dev = tri.device
+    visits = []                 # (top, its leaves, columns, column -> leaf)
+    for tci, (c0, c1) in enumerate(zip(*top_r)):
+        cols, owner = [], []
+        for k, ci in enumerate(range(c0, c1)):
+            n = ends[ci] - starts[ci]
+            cols += range(ci * STREAM_LEAF_PAD, ci * STREAM_LEAF_PAD + n)
+            owner += [k] * n
+        if cols:
+            visits.append((tci, torch.arange(c0, c1, device=dev),
+                           torch.tensor(cols, device=dev),
+                           torch.tensor(owner, device=dev)))
+    wins = None
+    if n_sph is not None:
+        # slot column -> packed column: column 128 ci + j holds starts[ci] + j
+        cols = torch.arange(tri.shape[1], device=dev)
+        packed = leaf_r[0].to(dev).long()[cols // STREAM_LEAF_PAD] \
+            + cols % STREAM_LEAF_PAD
+        wins = torch.tensor(float(n_sph), device=dev) + packed.to(_F32)
+    span = tri.shape[1]
+
+    def stage(ray, h, alive, _b=None):
+        inv = tuple(_inv_dir(d) for d in ray[3:])
+        rank = torch.full_like(alive, -1, dtype=torch.int64)
+        for tci, leaves, cols, owner in visits:
+            sel = _aabb_possible(top_h, tci, ray, inv, h[0],
+                                 alive).nonzero()[:, 0]
+            if not sel.numel():
+                continue
+            leaf_p = _aabb_possible(
+                leaf_b, leaves, [x[sel][:, None] for x in ray],
+                [x[sel][:, None] for x in inv], h[0][sel][:, None], True)
+            tri_block_hits(tri, cols, ray, h, rank, tci * span, sel,
+                           mask=leaf_p[:, owner],
+                           wins=None if wins is None else wins[cols])
+    return stage
 
 
 def _host_clusters(cl):
@@ -530,22 +630,26 @@ def render_linear_ref(sph, tri, cam_vec, *, width, height,
                       samples_per_pixel, depth, seed=0,
                       parity_plane_sign=True, sph_clusters=None,
                       tri_clusters=None, shard_rows=None, row_offset=0,
-                      row_stride=1):
-    """K1's plain PyTorch version: same arguments and results as
-    ``render_linear_cuda``, on whatever device the tensors are."""
+                      row_stride=1, tri_stream=None):
+    """K1's (K2's, with ``tri_stream``) plain PyTorch version: same
+    arguments and results as ``render_linear_cuda``, on whatever device the
+    tensors are."""
     shard_rows = _check_inputs(
         sph, tri, cam_vec, sph_clusters, tri_clusters, width=width,
         height=height, samples_per_pixel=samples_per_pixel, depth=depth,
         parity_plane_sign=parity_plane_sign, shard_rows=shard_rows,
-        row_offset=row_offset, row_stride=row_stride)
-    tri_h = tri.cpu().t().tolist()
-    tric_h = _host_clusters(tri_clusters)
+        row_offset=row_offset, row_stride=row_stride, tri_stream=tri_stream)
+    if tri_stream is not None:
+        tri_stage = stream_tri_stage(tri, tri_clusters, tri_stream)
+    else:
+        tri_h = tri.cpu().t().tolist()
+        tric_h = _host_clusters(tri_clusters)
 
-    def tri_stage(ray, h, alive, _b):
-        _closest_hit(tri_h, tric_h,
-                     lambda c, r_, hh, m: _tri_step(c, r_, hh,
-                                                    parity_plane_sign, m),
-                     ray, h, alive)
+        def tri_stage(ray, h, alive, _b):
+            _closest_hit(tri_h, tric_h,
+                         lambda c, r_, hh, m: _tri_step(
+                             c, r_, hh, parity_plane_sign, m),
+                         ray, h, alive)
 
     return trace_pixels_ref(
         sph, cam_vec, tri_stage, width=width, height=height,

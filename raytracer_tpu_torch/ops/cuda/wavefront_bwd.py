@@ -1,10 +1,12 @@
-"""K5, the backward render kernel: CUDA wrapper, plain version and the
-per-primitive winner reduction.
+"""K5 and K5s, the backward render kernel: CUDA wrapper, plain version and
+the per-primitive winner reduction.
 
 ``render_grad_cuda`` launches the hand-written CUDA kernel in
 ``raytracer_tpu_torch/csrc/wavefront_bwd.cu``, which replaces the TPU kernel
 ``raytracer_tpu/ops/pallas/wavefront_bwd.py`` ``render_grad_pallas`` /
-``_make_bwd_kernel``: the adjoint of K1's path trace.  Per pixel and sample
+``_make_bwd_kernel``: the adjoint of K1's path trace.  K5s is the same
+kernel with ``tri_stream``: K2's two-level walk over the leaf-aligned
+table, winners still the packed columns.  Per pixel and sample
 it re-traces the path storing 22 residual planes per bounce, then sweeps
 the bounces in reverse propagating the image cotangent by hand (implicit
 ``dt`` for spheres, direct ``dt`` for triangles under either plane sign,
@@ -18,7 +20,8 @@ operation order.  It divides by device tensors, never by Python scalars
 (PyTorch's CUDA divide-by-scalar multiplies by the reciprocal), so on the
 card it agrees with the kernel to rounding.  The wrapper uses it only for
 tensors on the CPU; for CUDA tensors it launches the kernel or raises.
-``LAUNCHES`` counts the wrapper's kernel launches.
+``LAUNCHES`` counts the wrapper's K5 launches, ``STREAM_LAUNCHES`` its K5s
+launches.
 
 The reduction from lanes to primitives (``_winner_reduce``) is plain
 PyTorch, as it was XLA glue outside the Pallas kernel: a scatter-add by
@@ -29,10 +32,12 @@ run; the camera cotangents are summed by ``torch.sum`` over the per-lane
 buffer and are the same from run to run.
 
 Arguments of both (the keywords of ``render_grad_pallas``): sph
-(SPH_ROWS, S), tri (TRI_ROWS, T), cam_vec (12,) and tri_clusters as for K1
-(spheres are always scanned flat: the differentiable path packs them
-without a permutation); g_image [shard_rows, W, 3] f32, the cotangent of
-K1's mean image; shard_rows / row_offset / row_stride as for K1.  Returns
+(SPH_ROWS, S), tri (TRI_ROWS, T), cam_vec (12,), tri_clusters and
+tri_stream as for K1 and K2 (spheres are always scanned flat: the
+differentiable path packs them without a permutation); with tri_stream,
+``n_tris_packed`` is T, the packed table's column count; g_image
+[shard_rows, W, 3] f32, the cotangent of K1's mean image; shard_rows /
+row_offset / row_stride as for K1.  Returns
 (dsph (9, S): rows cx, cy, cz, r, albedo rgb, fuzz, ir -- r's is the total
 derivative, so the table's r^2 row takes none; dtri (TRI_ROWS, T): the
 cotangent of the packed table, zero on the edge-constant and kind rows,
@@ -48,12 +53,12 @@ from .. import tables
 from ... import rng
 from . import wavefront as wf
 
-__all__ = ["LAUNCHES", "MAX_DEPTH", "GRAD_PLANES", "SPH_GRAD_ROWS",
-           "render_grad_cuda",
-           "render_grad_ref", "grad_slab_cuda", "grad_slab_ref",
-           "reduce_slab"]
+__all__ = ["LAUNCHES", "STREAM_LAUNCHES", "MAX_DEPTH", "GRAD_PLANES",
+           "SPH_GRAD_ROWS", "render_grad_cuda", "render_grad_ref",
+           "grad_slab_cuda", "grad_slab_ref", "reduce_slab"]
 
 LAUNCHES = 0
+STREAM_LAUNCHES = 0
 
 # The kernel keeps its residuals in a per-thread array of MAX_DEPTH
 # bounces; deeper paths raise instead of being cut.
@@ -75,9 +80,15 @@ EPS12 = float(np.float32(1e-12))
 HUGE = float(np.float32(1e30))
 
 
-def _check_grad_inputs(sph, tri, g_image, cam_vec, tri_clusters, **kw):
+def _check_grad_inputs(sph, tri, g_image, cam_vec, tri_clusters,
+                       n_tris_packed=None, **kw):
     shard_rows = wf._check_inputs(sph, tri, cam_vec, None, tri_clusters,
                                   **kw)
+    if kw.get("tri_stream") is not None and (
+            n_tris_packed is None
+            or int(tri_clusters[1].max()) > n_tris_packed):
+        raise ValueError("tri_stream needs n_tris_packed, the packed table's "
+                         "column count, at least the leaves' last column")
     if kw["depth"] > MAX_DEPTH:
         raise ValueError(f"K5 keeps at most MAX_DEPTH={MAX_DEPTH} bounces "
                          f"of residuals, got depth={kw['depth']}")
@@ -94,47 +105,55 @@ def _check_grad_inputs(sph, tri, g_image, cam_vec, tri_clusters, **kw):
 def render_grad_cuda(sph, tri, g_image, cam_vec, *, width, height,
                      samples_per_pixel, depth, seed=0,
                      parity_plane_sign=True, tri_clusters=None,
-                     shard_rows=None, row_offset=0, row_stride=1):
-    """(dsph, dtri, dcam) through K5 (the plain version for CPU
-    tensors)."""
+                     shard_rows=None, row_offset=0, row_stride=1,
+                     tri_stream=None, n_tris_packed=None):
+    """(dsph, dtri, dcam) through K5, or K5s with ``tri_stream`` (the plain
+    version for CPU tensors)."""
     slab, cam_lanes = grad_slab_cuda(
         sph, tri, g_image, cam_vec, width=width, height=height,
         samples_per_pixel=samples_per_pixel, depth=depth, seed=seed,
         parity_plane_sign=parity_plane_sign, tri_clusters=tri_clusters,
-        shard_rows=shard_rows, row_offset=row_offset, row_stride=row_stride)
-    return reduce_slab(slab, cam_lanes, sph.shape[1], tri.shape[1])
+        shard_rows=shard_rows, row_offset=row_offset, row_stride=row_stride,
+        tri_stream=tri_stream, n_tris_packed=n_tris_packed)
+    return reduce_slab(slab, cam_lanes, sph.shape[1],
+                       tri.shape[1] if tri_stream is None else n_tris_packed)
 
 
 def render_grad_ref(sph, tri, g_image, cam_vec, *, width, height,
                     samples_per_pixel, depth, seed=0,
                     parity_plane_sign=True, tri_clusters=None,
-                    shard_rows=None, row_offset=0, row_stride=1):
-    """K5's plain PyTorch version: same arguments and results as
+                    shard_rows=None, row_offset=0, row_stride=1,
+                    tri_stream=None, n_tris_packed=None):
+    """K5's (K5s's) plain PyTorch version: same arguments and results as
     ``render_grad_cuda``, on whatever device the tensors are."""
     slab, cam_lanes = grad_slab_ref(
         sph, tri, g_image, cam_vec, width=width, height=height,
         samples_per_pixel=samples_per_pixel, depth=depth, seed=seed,
         parity_plane_sign=parity_plane_sign, tri_clusters=tri_clusters,
-        shard_rows=shard_rows, row_offset=row_offset, row_stride=row_stride)
-    return reduce_slab(slab, cam_lanes, sph.shape[1], tri.shape[1])
+        shard_rows=shard_rows, row_offset=row_offset, row_stride=row_stride,
+        tri_stream=tri_stream, n_tris_packed=n_tris_packed)
+    return reduce_slab(slab, cam_lanes, sph.shape[1],
+                       tri.shape[1] if tri_stream is None else n_tris_packed)
 
 
 def grad_slab_cuda(sph, tri, g_image, cam_vec, *, width, height,
                    samples_per_pixel, depth, seed=0, parity_plane_sign=True,
                    tri_clusters=None, shard_rows=None, row_offset=0,
-                   row_stride=1):
-    """K5 itself: (slab [spp, depth, GRAD_PLANES, shard_rows, W] f32,
+                   row_stride=1, tri_stream=None, n_tris_packed=None):
+    """K5 (K5s) itself: (slab [spp, depth, GRAD_PLANES, shard_rows, W] f32,
     cam_lanes [12, shard_rows, W] f32).  Dead lanes have winner id -1."""
-    global LAUNCHES
+    global LAUNCHES, STREAM_LAUNCHES
     kw = dict(width=width, height=height,
               samples_per_pixel=samples_per_pixel, depth=depth,
               parity_plane_sign=parity_plane_sign, shard_rows=shard_rows,
-              row_offset=row_offset, row_stride=row_stride)
+              row_offset=row_offset, row_stride=row_stride,
+              tri_stream=tri_stream, n_tris_packed=n_tris_packed)
+    name = "K5" if tri_stream is None else "K5s"
     if sph.device.type == "cpu":
         return grad_slab_ref(sph, tri, g_image, cam_vec, seed=seed,
                              tri_clusters=tri_clusters, **kw)
     if sph.device.type != "cuda":
-        raise ValueError(f"K5 runs on CUDA tensors, got {sph.device}")
+        raise ValueError(f"{name} runs on CUDA tensors, got {sph.device}")
     shard_rows = _check_grad_inputs(sph, tri, g_image, cam_vec,
                                     tri_clusters, **kw)
     from . import build
@@ -146,6 +165,7 @@ def grad_slab_cuda(sph, tri, g_image, cam_vec, *, width, height,
                             device=device)
     tric_b, tric_r = tri_clusters if tri_clusters is not None else (None,
                                                                     None)
+    trit_b, trit_r = tri_stream if tri_stream is not None else (None, None)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -154,15 +174,19 @@ def grad_slab_cuda(sph, tri, g_image, cam_vec, *, width, height,
         rc = lib.rt_wavefront_grad(
             ptr(sph), sph.shape[1], ptr(tri), tri.shape[1], ptr(cam_vec),
             ptr(tric_b), ptr(tric_r), 0 if tric_b is None else tric_b.shape[1],
+            ptr(trit_b), ptr(trit_r), 0 if trit_b is None else trit_b.shape[1],
             ptr(g_image), ptr(slab), ptr(cam_lanes), width, height,
             rng.seed_word(seed), row_offset, row_stride, shard_rows,
             samples_per_pixel, depth, wf._inv_spp(samples_per_pixel),
             int(bool(parity_plane_sign)),
             torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"K5 (rt_wavefront_grad) launch failed: "
+        raise RuntimeError(f"{name} (rt_wavefront_grad) launch failed: "
                            f"cudaError {rc}")
-    LAUNCHES += 1
+    if tri_stream is None:
+        LAUNCHES += 1
+    else:
+        STREAM_LAUNCHES += 1
     return slab, cam_lanes
 
 
@@ -658,21 +682,29 @@ def _adjoint_step(res, adj, grads, rx, ry, rz, S, parity_plane_sign):
 def grad_slab_ref(sph, tri, g_image, cam_vec, *, width, height,
                   samples_per_pixel, depth, seed=0, parity_plane_sign=True,
                   tri_clusters=None, shard_rows=None, row_offset=0,
-                  row_stride=1):
-    """K5's plain version before the reduction: same results as
+                  row_stride=1, tri_stream=None, n_tris_packed=None):
+    """K5's (K5s's) plain version before the reduction: same results as
     ``grad_slab_cuda``."""
     shard_rows = _check_grad_inputs(
         sph, tri, g_image, cam_vec, tri_clusters, width=width,
         height=height, samples_per_pixel=samples_per_pixel, depth=depth,
         parity_plane_sign=parity_plane_sign, shard_rows=shard_rows,
-        row_offset=row_offset, row_stride=row_stride)
+        row_offset=row_offset, row_stride=row_stride, tri_stream=tri_stream,
+        n_tris_packed=n_tris_packed)
     dev = sph.device
     S = sph.shape[1]
     # host columns with the winner id appended (spheres si, triangles S+ti)
     sph_h = [col + [float(i)] for i, col in enumerate(sph.cpu().t().tolist())]
-    tri_h = [col + [float(S + i)]
-             for i, col in enumerate(tri.cpu().t().tolist())]
-    tric_h = wf._host_clusters(tri_clusters)
+    if tri_stream is not None:
+        tri_stage = wf.stream_tri_stage(tri, tri_clusters, tri_stream, S)
+    else:
+        tri_h = [col + [float(S + i)]
+                 for i, col in enumerate(tri.cpu().t().tolist())]
+        tric_h = wf._host_clusters(tri_clusters)
+
+        def tri_stage(ray, h, alive):
+            wf._closest_hit(tri_h, tric_h, lambda c, r_, hh, m: _tri_step(
+                c, r_, hh, parity_plane_sign, m), ray, h, alive)
     (ox0, oy0, oz0, llcx, llcy, llcz,
      hx, hy, hz, vx, vy, vz) = cam_vec.cpu().tolist()
 
@@ -702,8 +734,6 @@ def grad_slab_ref(sph, tri, g_image, cam_vec, *, width, height,
                        dtype=_F32, device=dev)
     slab[:, :, GP_WIN] = -1.0
     cam = [zero] * 12
-    tri_step = (lambda c, r_, hh, m: _tri_step(c, r_, hh, parity_plane_sign,
-                                               m))
     for s in range(samples_per_pixel):
         ju, jv, _ = rng.pcg3d(pix_u, s, 0)
         u = (pcol_f + rng.random_f32_from_bits24(ju)) / w1
@@ -724,7 +754,7 @@ def grad_slab_ref(sph, tri, g_image, cam_vec, *, width, height,
             h = [full(BIG), zero, zero, full(1.0), zero, zero, zero, zero,
                  zero, full(1.0), full(-1.0), full(1.0)]
             wf._closest_hit(sph_h, None, _sphere_step, ray, h, alive)
-            wf._closest_hit(tri_h, tric_h, tri_step, ray, h, alive)
+            tri_stage(ray, h, alive)
             t_best, nxc, nyc, nzc, kind, ar, ag, ab, fz, irx, win, rr = h
             res = (*ray, *tp, t_best, win, torch.where(alive, 1.0, 0.0),
                    nxc, nyc, nzc, rr, kind, ar, ag, ab, fz, irx)

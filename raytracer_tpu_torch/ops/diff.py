@@ -1,4 +1,5 @@
-"""The differentiable kernel path: K1 forward, K5 backward.
+"""The differentiable kernel path: K1 (or K2) forward, K5 (or K5s)
+backward.
 
 Port of ``raytracer_tpu/ops/diff.py``.  ``render_linear_diff`` is a
 ``torch.autograd.Function`` over the packed tables (sph, tri, cam_vec):
@@ -21,6 +22,14 @@ so the two sweeps see one table order.  Triangles may cull through a
 bounds are recomputed from the live vertices on every call, so culling
 stays sound while an optimiser moves geometry.  Culling is only used under
 the correct plane equation (``parity_plane_sign=False``).
+
+Meshes whose packed tables pass the JAX package's table budget
+(``_needs_stream``) take the two-level walk, as the JAX package streams
+them: leaves of 128 triangles, each in a 128-column slot of a leaf-aligned
+table (``tri_stream_table``), tops of 16 leaves (``tri_stream_tops``); K2
+renders and K5s differentiates.  The autograd input stays the PACKED table
+and K5s's winners are packed columns, so the cotangent lands on the packed
+columns as with K1 + K5.
 """
 
 from __future__ import annotations
@@ -37,10 +46,24 @@ from . import tables
 from .cuda import wavefront, wavefront_bwd
 
 __all__ = ["pack_spheres", "pack_triangles", "TriCull", "build_tri_cull",
-           "tri_cluster_bounds", "render_linear_diff", "bwd_kernel_eligible",
-           "LEAF_SIZE"]
+           "tri_cluster_bounds", "tri_stream_table", "tri_stream_tops",
+           "walk_tables", "table_bytes", "render_linear_diff", "bwd_kernel_eligible",
+           "LEAF_SIZE", "STREAM_LEAF_PAD", "STREAM_ROWS_PAD",
+           "STREAM_BUDGET_BYTES"]
 
-LEAF_SIZE = 64   # triangles per cull leaf
+LEAF_SIZE = 64   # triangles per cull leaf of the one-level walk
+# leaf slot width and rows of the two-level walk's leaf-aligned table
+# (raytracer_tpu/ops/pallas/wavefront.py:703-705); a leaf of the two-level
+# walk fills one slot, so it holds up to 128 triangles
+STREAM_LEAF_PAD = wavefront.STREAM_LEAF_PAD
+STREAM_ROWS_PAD = tables.TRI_ROWS_PAD
+# Packed-table bytes past which the differentiable path takes the two-level
+# walk.  This is the JAX package's PALLAS_SMEM_BUDGET_BYTES, a TPU v5e
+# scalar-memory size (raytracer_tpu/ops/__init__.py:37), carried over as the
+# starting crossover between the walks so that both packages pick the same
+# topology on every scene; the card's own crossover is measured by
+# chip_smoke.py and recorded in PERF.md.
+STREAM_BUDGET_BYTES = 970_828
 
 
 def pack_spheres(scene: Scene) -> torch.Tensor:
@@ -114,17 +137,55 @@ class TriCull:
         self.perm = perm            # (T,) int64: packed column -> triangle
         self.ranges = ranges        # (2, C) int32 leaf [start, end)
         self.leaf_ids = leaf_ids    # (T,) int32 leaf of each packed column
+        self.colmap = None          # _stream_colmap, built on first use
+        self._on = {}               # (device, name) -> tensor, see on()
+
+    def on(self, device, name: str) -> torch.Tensor:
+        """The static index ``name`` as a tensor on ``device``, copied once:
+        ``perm`` and ``ranges`` as stored, ``leaf_ids`` as int64, and the
+        leaf-aligned table's ``src`` columns and ``mask`` (1.0 on filled
+        slot columns) from the column map."""
+        key = (torch.device(device), name)
+        hit = self._on.get(key)
+        if hit is None:
+            if name in ("src", "mask"):
+                colmap = _stream_colmap(self)
+                arr = (np.maximum(colmap, 0) if name == "src"
+                       else (colmap >= 0).astype(np.float32))
+            elif name == "leaf_ids":
+                arr = self.leaf_ids.astype(np.int64)
+            else:
+                arr = getattr(self, name)
+            hit = self._on[key] = torch.from_numpy(arr).to(device)
+        return hit
 
 
 _CULL_CACHE: dict = {}
 
 
-def build_tri_cull(scene: Scene, leaf_target: int = LEAF_SIZE
+def table_bytes(scene: Scene) -> int:
+    """Bytes of the packed sphere and triangle tables, counted as the JAX
+    package's ``pallas_table_bytes`` counts them."""
+    return 4 * (scene.num_spheres * tables.SPH_ROWS
+                + max(scene.num_triangles, 1) * tables.TRI_ROWS)
+
+
+def _needs_stream(scene: Scene) -> bool:
+    """Whether the differentiable path takes the two-level walk."""
+    return table_bytes(scene) > STREAM_BUDGET_BYTES
+
+
+def build_tri_cull(scene: Scene, leaf_target: int | None = None
                    ) -> TriCull | None:
     """Host-side cull topology of ``scene`` (cached on its identity), or
     None below 64 valid triangles.  Leaves hold up to ``leaf_target``
-    triangles (64: the TPU's 128-wide leaves for tables past its scalar
-    memory have no counterpart on the card)."""
+    triangles; by default 128 (one slot of the two-level walk) for scenes
+    past the table budget, else 64, as the JAX package decides.  As there,
+    the first build of a scene is cached and later calls return it, so a
+    caller forces a leaf size by building with it first."""
+    if leaf_target is None:
+        leaf_target = (STREAM_LEAF_PAD if table_bytes(scene)
+                       > STREAM_BUDGET_BYTES else LEAF_SIZE)
     hit = _CULL_CACHE.get(id(scene))
     if hit is not None and hit[0]() is scene:
         return hit[1]
@@ -161,8 +222,8 @@ def tri_cluster_bounds(scene: Scene, cull: TriCull) -> torch.Tensor:
     gradient."""
     dev = scene.device
     C = cull.ranges.shape[1]
-    ids = torch.from_numpy(cull.leaf_ids).to(dev, torch.int64)
-    perm = torch.from_numpy(cull.perm).to(dev)
+    ids = cull.on(dev, "leaf_ids")
+    perm = cull.on(dev, "perm")
     v0 = scene.tri_v0.to(torch.float32)[perm]
     v1 = scene.tri_v1.to(torch.float32)[perm]
     v2 = scene.tri_v2.to(torch.float32)[perm]
@@ -182,29 +243,118 @@ def tri_cluster_bounds(scene: Scene, cull: TriCull) -> torch.Tensor:
     return torch.cat([lo_p.T, hi_p.T]).to(torch.float32).contiguous()
 
 
+def _stream_colmap(cull: TriCull) -> np.ndarray:
+    """(C * STREAM_LEAF_PAD,) map from the leaf-aligned table's columns to
+    the packed columns, -1 on the zero padding of partly filled slots;
+    cached on the cull."""
+    if cull.colmap is None:
+        P = STREAM_LEAF_PAD
+        C = cull.ranges.shape[1]
+        colmap = np.full(C * P, -1, np.int64)
+        for k in range(C):
+            s, e = int(cull.ranges[0, k]), int(cull.ranges[1, k])
+            if e - s > P:
+                raise ValueError(f"cull leaf {k} holds {e - s} triangles, "
+                                 f"more than a {P}-column slot")
+            colmap[k * P:k * P + (e - s)] = np.arange(s, e)
+        cull.colmap = colmap
+    return cull.colmap
+
+
+def _align(packed: torch.Tensor, cull: TriCull) -> torch.Tensor:
+    """The leaf-aligned (STREAM_ROWS_PAD, C * 128) table from the packed
+    (TRI_ROWS, T) one: leaf k's triangles in slot columns [128k, 128k + n),
+    zero pad columns and rows (a zero plane normal never hits)."""
+    dev = packed.device
+    vals = packed[:, cull.on(dev, "src")] * cull.on(dev, "mask")[None, :]
+    pad = torch.zeros((STREAM_ROWS_PAD - vals.shape[0], vals.shape[1]),
+                      dtype=vals.dtype, device=dev)
+    return torch.cat([vals, pad]).contiguous()
+
+
+def tri_stream_table(scene: Scene, cull: TriCull) -> torch.Tensor:
+    """Differentiable leaf-aligned triangle table of the two-level walk:
+    the torch counterpart of ``tri_stream_table_jnp`` (diff.py:236-248)."""
+    return _align(pack_triangles(scene, perm=cull.on(scene.device, "perm")),
+                  cull)
+
+
+@torch.no_grad()
+def tri_stream_tops(cull: TriCull, tric_b: torch.Tensor, group: int = 16):
+    """Tops of the two-level walk: ``group`` consecutive leaves each, as
+    (bounds (6, Ct) float32, ranges (2, Ct) int32 over the leaves).  A
+    top's box is the union of its leaves' live boxes; a ragged last top
+    is padded with lo = +1 / hi = -1 sentinels, which only enlarge a
+    nonempty union (diff.py:251-272)."""
+    C = cull.ranges.shape[1]
+    Ct = -(-C // group)
+    dev = tric_b.device
+    ranges = torch.from_numpy(np.stack([
+        np.arange(Ct, dtype=np.int32) * group,
+        np.minimum(np.arange(1, Ct + 1, dtype=np.int32) * group, C)]))
+    pad = Ct * group - C
+    sentinel = torch.tensor([[1.0], [1.0], [1.0], [-1.0], [-1.0], [-1.0]],
+                            dtype=tric_b.dtype, device=dev)
+    b = torch.cat([tric_b, sentinel.expand(6, pad)], dim=1)
+    lo = b[0:3].reshape(3, Ct, group).amin(dim=2)
+    hi = b[3:6].reshape(3, Ct, group).amax(dim=2)
+    return torch.cat([lo, hi]).contiguous(), ranges.to(dev)
+
+
+def walk_tables(scene: Scene, cull: TriCull | None,
+                two_level: bool = False) -> dict:
+    """The kernels' tables of ``scene`` over the topology ``cull``:
+    ``sph``, ``packed`` (the triangle table, columns in ``cull.perm``
+    order; both differentiable), ``clusters`` (leaf bounds and ranges, None
+    without a cull), and with ``two_level`` the walk's ``aligned`` table,
+    gathered from the detached packed one, and its ``tops`` (else None)."""
+    dev = scene.device
+    t = dict(sph=pack_spheres(scene), clusters=None, aligned=None, tops=None)
+    if cull is None:
+        t["packed"] = pack_triangles(scene)
+        return t
+    t["packed"] = pack_triangles(scene, perm=cull.on(dev, "perm"))
+    b = tri_cluster_bounds(scene, cull)
+    t["clusters"] = (b, cull.on(dev, "ranges"))
+    if two_level:
+        t["aligned"] = _align(t["packed"].detach(), cull)
+        t["tops"] = tri_stream_tops(cull, b)
+    return t
+
+
 class _KernelRender(torch.autograd.Function):
-    """Mean image from the packed tables: K1 forward, K5 backward."""
+    """Mean image from the packed tables: K1 forward and K5 backward, or,
+    with ``stream`` (the leaf-aligned table gathered from the packed one,
+    and the tops), K2 and K5s."""
 
     @staticmethod
-    def forward(ctx, sph, tri, cam_vec, tri_clusters, cfg):
+    def forward(ctx, sph, tri, cam_vec, tri_clusters, cfg, stream=None):
+        walk = tri if stream is None else stream[0]
+        tri_stream = None if stream is None else stream[1]
         mean, _segs = wavefront.render_linear_cuda(
-            sph, tri, cam_vec, tri_clusters=tri_clusters, **cfg)
-        ctx.save_for_backward(sph, tri, cam_vec)
+            sph, walk, cam_vec, tri_clusters=tri_clusters,
+            tri_stream=tri_stream, **cfg)
+        ctx.save_for_backward(sph, walk, cam_vec)
         ctx.tri_clusters = tri_clusters
+        ctx.tri_stream = tri_stream
+        ctx.n_tris = tri.shape[1]
         ctx.cfg = cfg
         return mean
 
     @staticmethod
     def backward(ctx, g):
-        sph, tri, cam_vec = ctx.saved_tensors
+        sph, walk, cam_vec = ctx.saved_tensors
+        # dtri has the packed table's columns either way: K5s's winners
+        # are packed columns, as the JAX _bwd chains them
         dsph, dtri, dcam = wavefront_bwd.render_grad_cuda(
-            sph, tri, g.contiguous(), cam_vec,
-            tri_clusters=ctx.tri_clusters, **ctx.cfg)
+            sph, walk, g.contiguous(), cam_vec,
+            tri_clusters=ctx.tri_clusters, tri_stream=ctx.tri_stream,
+            n_tris_packed=ctx.n_tris, **ctx.cfg)
         # dsph rows are cx, cy, cz, r, rgb, fuzz, ir; the table's r^2 and
         # kind rows take zero (K5's dr is the total derivative)
         d_table = torch.zeros_like(sph)
         d_table[wavefront_bwd.SPH_GRAD_ROWS] = dsph
-        return d_table, dtri, dcam, None, None
+        return d_table, dtri, dcam, None, None, None
 
 
 def render_linear_diff(scene: Scene, camera: Camera, *, width: int,
@@ -217,29 +367,31 @@ def render_linear_diff(scene: Scene, camera: Camera, *, width: int,
     (their plain versions on CPU tensors).
 
     ``tri_cull`` (from ``build_tri_cull``) culls triangles, only under the
-    correct plane equation (it is ignored under ``parity_plane_sign``).
+    correct plane equation (it is ignored under ``parity_plane_sign``):
+    one level of leaves, or, for scenes past the table budget
+    (``_needs_stream``), the two-level walk of K2 and K5s.
     ``shard_rows`` / ``row_offset`` / ``row_stride`` render the global rows
     ``row_offset + k * row_stride`` for k < shard_rows (rows = height when
     shard_rows is None), forward and backward."""
     cull = None if parity_plane_sign else tri_cull
-    sph = pack_spheres(scene)
-    tri = pack_triangles(scene, perm=None if cull is None else cull.perm)
-    tri_cl = None
-    if cull is not None:
-        tri_cl = (tri_cluster_bounds(scene, cull),
-                  torch.from_numpy(cull.ranges).to(scene.device))
+    t = walk_tables(scene, cull, cull is not None and _needs_stream(scene))
+    stream = None if t["tops"] is None else (t["aligned"], t["tops"])
     cfg = dict(width=width, height=height,
                samples_per_pixel=samples_per_pixel, depth=depth, seed=seed,
                parity_plane_sign=parity_plane_sign, shard_rows=shard_rows,
                row_offset=row_offset, row_stride=row_stride)
     cv = tables.camera_vec(camera).to(scene.device)
-    return _KernelRender.apply(sph, tri, cv, tri_cl, cfg)
+    return _KernelRender.apply(t["sph"], t["packed"], cv, t["clusters"], cfg,
+                               stream)
 
 
 def bwd_kernel_eligible(scene: Scene,
                         parity_plane_sign: bool | None = None) -> bool:
-    """Whether K5 covers ``scene``: always.  On the card K5 reads every
-    table from device memory, so it takes every scene K1 takes (the TPU's
-    scalar-memory budget and its streamed fallback have no counterpart);
-    the arguments are kept for the JAX package's callers."""
+    """Whether the backward kernels cover ``scene``: always.  Past the
+    table budget under the correct plane sign, K5s takes the two-level walk
+    as the JAX package's streamed backward does; every other scene,
+    including a big one under the parity sign (which the JAX package sends
+    to its XLA backward), goes to K5, which reads its tables from device
+    memory at any size.  The arguments are kept for the JAX package's
+    callers."""
     return True

@@ -1,8 +1,9 @@
-"""K1, K5, K4 and K3 on the card: each CUDA kernel against its plain
-version (K1, K4, K3: equal segment counts, max|diff| <= 1e-5; K5: winner
-ids equal, dsph, dtri and dcam within 1e-5 * max|ref| + 1e-7), banding, the
-launch counters, a render-then-grad round trip through K1 and K5, the
-mesh dispatch through K3 and K4, and input checks.
+"""K1, K2, K5, K5s, K4 and K3 on the card: each CUDA kernel against its
+plain version (K1, K2, K4, K3: equal segment counts, max|diff| <= 1e-5; K5,
+K5s: winner ids equal, dsph, dtri and dcam within 1e-5 * max|ref| + 1e-7),
+K2 and K5s bitwise K1 and K5 over the same leaves, banding, the launch
+counters, a render-then-grad round trip through K1 and K5 and one through
+K2 and K5s, the mesh dispatch through K3 and K4, and input checks.
 Marked ``cuda``: each test skips where there is no GPU.  On a GPU machine
 without JAX, run them without the suite's JAX conftest:
 ``python -m pytest tests/test_torch_cuda.py -q --noconftest``."""
@@ -100,17 +101,13 @@ def _grad_inputs(name, dev):
         scene, cam = w.to_scene(), w.to_camera()
     scene, cam = scene.to(dev), cam.to(dev)
     parity = not scene.exact_planes
-    cull = None if parity else diff.build_tri_cull(scene)
-    tri_cl = None if cull is None else (
-        diff.tri_cluster_bounds(scene, cull),
-        torch.from_numpy(cull.ranges).to(dev))
+    with torch.no_grad():
+        t = diff.walk_tables(scene, None if parity
+                             else diff.build_tri_cull(scene))
     g = torch.randn(GKW["height"], GKW["width"], 3, device=dev,
                     generator=torch.Generator(device=dev).manual_seed(1))
-    return (diff.pack_spheres(scene).detach(),
-            diff.pack_triangles(scene, perm=None if cull is None
-                                else cull.perm).detach(),
-            g, tables.camera_vec(cam)), dict(parity_plane_sign=parity,
-                                             tri_clusters=tri_cl)
+    return (t["sph"], t["packed"], g, tables.camera_vec(cam)), dict(
+        parity_plane_sign=parity, tri_clusters=t["clusters"])
 
 
 @pytest.mark.parametrize("name", ["default_world", "ffi_example_world",
@@ -179,6 +176,102 @@ def test_render_then_grad_round_trip_uses_both_kernels(dev):
         assert torch.isfinite(a).all()
         assert float((a - b).abs().max()) <= \
             5e-3 * float(b.abs().max()) + 1e-7, k
+
+
+# ---------------------------------------------------------------------------
+# K2 and K5s, the two-level walk of the differentiable path
+# ---------------------------------------------------------------------------
+
+def _stream_inputs(name, dev):
+    """Tables of both walks over one topology: mesh_scene(3) in leaves of
+    16 (128 leaves, 8 tops), OBJ-10k in leaves of 128 (128 leaves of 80)."""
+    from raytracer_tpu_torch.ops import diff
+    scene, cam = (rtt.models.mesh_scene(3) if name == "mesh_scene3"
+                  else rtt.models.obj_mesh_scene())
+    scene, cam = scene.to(dev), cam.to(dev)
+    cull = diff.build_tri_cull(scene, 16 if name == "mesh_scene3" else 128)
+    with torch.no_grad():
+        t = diff.walk_tables(scene, cull, two_level=True)
+    g = torch.randn(GKW["height"], GKW["width"], 3, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(2))
+    return dict(t, g=g, cam=tables.camera_vec(cam))
+
+
+@pytest.mark.parametrize("name", ["mesh_scene3", "obj_mesh_scene"])
+def test_k2_matches_plain_version_and_k1_over_the_same_leaves(dev, name):
+    t = _stream_inputs(name, dev)
+    kw = dict(GKW, parity_plane_sign=False, tri_clusters=t["clusters"])
+    before = (wfc.LAUNCHES, wfc.STREAM_LAUNCHES)
+    km, ks = wfc.render_linear_cuda(t["sph"], t["aligned"], t["cam"],
+                                    tri_stream=t["tops"], **kw)
+    torch.cuda.synchronize()
+    assert (wfc.LAUNCHES, wfc.STREAM_LAUNCHES) == (before[0], before[1] + 1)
+    pm, ps = wfc.render_linear_ref(t["sph"], t["aligned"], t["cam"],
+                                   tri_stream=t["tops"], **kw)
+    assert torch.isfinite(km).all() and ks == ps
+    assert float((km - pm).abs().max()) <= TOL
+    one, one_s = wfc.render_linear_cuda(t["sph"], t["packed"], t["cam"], **kw)
+    assert torch.equal(km, one) and ks == one_s
+
+
+@pytest.mark.parametrize("name", ["mesh_scene3", "obj_mesh_scene"])
+def test_k5s_matches_plain_version_and_k5_over_the_same_leaves(dev, name):
+    from raytracer_tpu_torch.ops.cuda import wavefront_bwd as wb
+    t = _stream_inputs(name, dev)
+    T = t["packed"].shape[1]
+    kw = dict(GKW, parity_plane_sign=False, tri_clusters=t["clusters"])
+    skw = dict(kw, tri_stream=t["tops"], n_tris_packed=T)
+    args = (t["sph"], t["aligned"], t["g"], t["cam"])
+    before = (wb.LAUNCHES, wb.STREAM_LAUNCHES)
+    kslab, kcam = wb.grad_slab_cuda(*args, **skw)
+    torch.cuda.synchronize()
+    assert (wb.LAUNCHES, wb.STREAM_LAUNCHES) == (before[0], before[1] + 1)
+    pslab, pcam = wb.grad_slab_ref(*args, **skw)
+    assert torch.equal(kslab[:, :, wb.GP_WIN], pslab[:, :, wb.GP_WIN])
+    assert (pslab[:, :, wb.GP_WIN] >= t["sph"].shape[1]).any()
+    S = t["sph"].shape[1]
+    for got, want in zip(wb.reduce_slab(kslab, kcam, S, T),
+                         wb.reduce_slab(pslab, pcam, S, T)):
+        assert float((got - want).abs().max()) <= \
+            TOL * float(want.abs().max()) + 1e-7
+    oslab, ocam = wb.grad_slab_cuda(t["sph"], t["packed"], t["g"], t["cam"],
+                                    **kw)
+    assert torch.equal(kslab, oslab) and torch.equal(kcam, ocam)
+
+
+def test_streamed_gradient_pass_launches_k2_and_k5s(dev, monkeypatch):
+    """A scene forced past the table budget: one K2 and one K5s launch per
+    value and gradient, no K1 or K5, and the one-level pass's gradients."""
+    from raytracer_tpu_torch import grad
+    from raytracer_tpu_torch.ops import diff
+    from raytracer_tpu_torch.ops.cuda import wavefront_bwd as wb
+    scene, cam = rtt.models.mesh_scene(3)
+    scene, cam = scene.to(dev), cam.to(dev)
+    kw = dict(width=32, height=24, samples_per_pixel=2, depth=3, seed=1,
+              parity_plane_sign=False)
+    target = torch.rand(24, 32, 3, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(3))
+    grads, counts = {}, {}
+    for forced in (True, False):
+        monkeypatch.setattr(diff, "_needs_stream", lambda s, f=forced: f)
+        p = grad.extract_params(scene, ["tri_v0", "mat_color"])
+        for v in p.values():
+            v.requires_grad_(True)
+        c0 = (wfc.LAUNCHES, wfc.STREAM_LAUNCHES, wb.LAUNCHES,
+              wb.STREAM_LAUNCHES)
+        grad.make_loss_fn(scene, cam, target, engine="auto", **kw)(
+            p).backward()
+        torch.cuda.synchronize()
+        counts[forced] = tuple(b - a for a, b in zip(c0, (
+            wfc.LAUNCHES, wfc.STREAM_LAUNCHES, wb.LAUNCHES,
+            wb.STREAM_LAUNCHES)))
+        grads[forced] = {k: v.grad for k, v in p.items()}
+    assert counts == {True: (0, 1, 0, 1), False: (1, 0, 1, 0)}
+    for k, a in grads[True].items():
+        b = grads[False][k]
+        assert torch.isfinite(a).all() and a.any()
+        assert float((a - b).abs().max()) <= \
+            TOL * float(b.abs().max()) + 1e-7, k
 
 
 # ---------------------------------------------------------------------------
