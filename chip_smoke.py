@@ -8,9 +8,11 @@ Run from the repository root, with no arguments:
 It drives the port's forward render path through the hand-written CUDA
 kernel K1, its gradient pass through K1 and the backward kernel K5, its
 triangle-mesh paths through the binned per-bounce kernel K3 and the
-streamed big-mesh kernel K4, and the big-mesh gradient pass through K2 and
-K5s (K1 and K5 with the two-level leaf walk), and fails (non-zero exit, no
-result line) if any phase fails:
+streamed big-mesh kernel K4, the big-mesh gradient pass through K2 and
+K5s (K1 and K5 with the two-level leaf walk), the big-mesh frames past
+128 spp or 2^24 rays through the sorted per-bounce kernel K6, and K1's
+bfloat16 sphere stage K1-lowp, and fails (non-zero exit, no result line)
+if any phase fails:
 
   1. device: a CUDA GPU is required; prints its name and power limit;
   2. build: compiles csrc/*.cu with nvcc (first use) and prints the time;
@@ -40,6 +42,12 @@ result line) if any phase fails:
      dcam within 1e-5 * max|ref| + 1e-7; and K2 / K5s bitwise equal to
      K1 / K5 over the packed table and the same leaves (image, segments,
      slab, camera lanes);
+  3e. K6 vs its plain version at 64x36, depth 4 (4 spp; 2 on 164k) on the
+     three meshes and a 37x21 mesh-1292 frame at 3 spp (Morton padding),
+     node_exit off bitwise on; bar as 3c;
+  3f. K1-lowp vs its plain version at 64x36, 4 spp, depth 8, parity sign,
+     on the default world and the two-sphere unit scene: equal segments,
+     max|diff| <= 1e-5;
   4. the main path: ``cli.main`` at width 512, 64 spp, depth 8, checked
      by the launch counters (one K1 launch per row band, no K5) and
      against the plain version's framebuffer;
@@ -73,6 +81,17 @@ result line) if any phase fails:
      (tri_v0) exactly one K2 and one K5s; gradients finite and not all
      zero; then 3 Adam steps at lr 1e-2 recovering mat_color from half of
      it on each, one launch pair per step, and the loss falls;
+  4e. the sorted engine's main paths at full width: (A) an
+     ``api.RenderSession`` over OBJ-10k at 512x512, 256 spp, depth 4
+     resolves to ``cuda_sorted`` and its frame launches K6 4 times and
+     nothing else; (B) ``ops.render_linear_fast`` on the 164k scene at
+     1024x1024, 32 spp, depth 4 (33.5M rays, past 2^24) resolves to
+     ``cuda_sorted`` and launches K6 4 times and nothing else.  Each
+     framebuffer within 1 LSB of K1's on 99.99% of pixels, segments within
+     0.01% of K1's, peak device memory printed;
+  4f. the lowp study's frame (default world 512x512, 64 spp, depth 8,
+     parity sign) through ``render_linear_cuda(lowp=True)``: one K1-lowp
+     launch and nothing else;
   5. throughput on the card: rays/s (traced segments / s) for the default
      world at 512x512, 64 spp, depth 8 and the random sphere field at
      512x512, 16 spp, depth 8, with K1's and the plain version's times;
@@ -97,7 +116,15 @@ result line) if any phase fails:
      plain version's rays); the winner reduction, the host glue and the
      peak device memory of each pass; the walk crossover: the 164k pass
      one-level in 64-triangle leaves against the two-level walk, OBJ-10k
-     one-level against the forced two-level walk.
+     one-level against the forced two-level walk;
+  5e. sorted throughput: rays/s of (A) and (B) (median of 3) beside K1's
+     on the same frames, each under torch.profiler once, K6's bounces,
+     sorts + gathers and image assembly by CUDA events; the crossover K6
+     vs K1 on mesh-1292 at 1024x1024, 32 spp, depth 4 (SORTED_MIN_TRIS);
+     K6 vs K3 at 512x512, 4 spp, depth 4 on the three meshes; K6 vs its
+     plain version at (A) (67.1M rays, past 2^24; bar as 3c), with both
+     versions' bounce times and K6's bound there; K1-lowp vs K1 at the lowp study's frame with both times,
+     the plain version's and PSNR against float32.
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -745,7 +772,9 @@ def _walk_ops(ray, alive, cull, wid, n_warps, levels, leaf_tris):
     caps it), never above the walk's own at any step, so the walk makes
     every test counted here; top-level tests that fail are left out."""
     n = ray[0].shape[0]
-    lane, acc = 0.0, [None] * len(levels)
+    f64 = torch.float64
+    lane, acc = torch.zeros((), dtype=f64, device=alive.device), \
+        [None] * len(levels)
     for i in range(0, n, 1 << 15):
         sl = slice(i, i + (1 << 15))
         above = None
@@ -756,9 +785,9 @@ def _walk_ops(ray, alive, cull, wid, n_warps, levels, leaf_tris):
                                      dtype=torch.int32, device=m.device)
             acc[k].index_add_(0, wid[sl], m.to(torch.int32))
             tested = m if parent is None else above[:, parent]
-            lane += flops * float(tested.sum())
+            lane += flops * tested.sum(dtype=f64)
             above = m & tested
-        lane += FLOPS_TRI * float((above.double() @ leaf_tris.double()).sum())
+        lane += FLOPS_TRI * (above.to(f64) @ leaf_tris.to(f64)).sum()
     warp, above = 0.0, None
     for (_, parent, flops), a in zip(levels, acc):
         p = a > 0
@@ -766,7 +795,7 @@ def _walk_ops(ray, alive, cull, wid, n_warps, levels, leaf_tris):
         warp += flops * float(tested.sum())
         above = p & tested
     warp += FLOPS_TRI * float((above.double() @ leaf_tris.double()).sum())
-    return lane, WARP * warp
+    return float(lane), WARP * warp
 
 
 def _pixel_walk_ops(records, levels, leaf_tris, width):
@@ -913,10 +942,12 @@ def _counters():
     from raytracer_tpu_torch.ops.cuda import wavefront as wfc
     from raytracer_tpu_torch.ops.cuda import wavefront_binned as wb
     from raytracer_tpu_torch.ops.cuda import wavefront_bwd as wbw
+    from raytracer_tpu_torch.ops.cuda import wavefront_sorted as wso
     from raytracer_tpu_torch.ops.cuda import wavefront_stream as ws
     return {"K1": (wfc, "LAUNCHES"), "K2": (wfc, "STREAM_LAUNCHES"),
             "K5": (wbw, "LAUNCHES"), "K5s": (wbw, "STREAM_LAUNCHES"),
-            "K3": (wb, "LAUNCHES"), "K4": (ws, "LAUNCHES")}
+            "K3": (wb, "LAUNCHES"), "K4": (ws, "LAUNCHES"),
+            "K6": (wso, "LAUNCHES"), "K1-lowp": (wfc, "LOWP_LAUNCHES")}
 
 
 def _zero_counts():
@@ -1112,18 +1143,33 @@ class _Recorder:
         return out
 
 
+def _live_bytes(calls, module):
+    """Bytes the recorded bounces of a per-bounce engine (K3 or K6, its
+    ``module``) must move: each launch reads its tables and the camera
+    once; each ray live at its start reads its state planes (none on the
+    primary bounce, which makes its rays), writes them and, but after the
+    last bounce, its sort key.  Dead rays and padding slots need nothing."""
+    plane, total = 4 * module.P_STATE, 0
+    for (T, cam_vec, state), k, _ in calls:
+        if k["primary"]:
+            live, reads = k["width"] * k["height"] * k["spp"], 0
+        else:
+            live, reads = int((state[module.ST_ALIVE] > 0.5).sum()), plane
+        total += nbytes(tuple(T), cam_vec) + live * (
+            reads + plane + (0 if k["is_last"] else 4))
+    return total
+
+
 def _k3_frame_timed(args, kw, **extra):
     """One K3 frame, then each of its passes and regroups again on the
     same inputs, timed by CUDA events: (pass ms, regroup ms, result, bytes
-    the passes moved)."""
+    the passes must move)."""
     from raytracer_tpu_torch.ops.cuda import wavefront_binned as wb
     with _Recorder(wb, "binned_pass_cuda") as passes, \
             _Recorder(wb, "regroup") as regroups:
         result = wb.render_linear_binned(*args, **kw, **extra)
         pass_ms, regroup_ms = passes.replay_ms(), regroups.replay_ms()
-    moved = sum(nbytes(tuple(a[0]), a[1], a[2], out)
-                for a, _, out in passes.calls)
-    return pass_ms, regroup_ms, result, moved
+    return pass_ms, regroup_ms, result, _live_bytes(passes.calls, wb)
 
 
 def phase_mesh_throughput(rtt, smi, scenes) -> dict:
@@ -1189,7 +1235,9 @@ def phase_mesh_throughput(rtt, smi, scenes) -> dict:
     log(f"  K3: passes {sum(pass_ms):.3f} ms "
         f"({[round(x, 3) for x in pass_ms]}), regroups "
         f"{sum(regroup_ms):.3f} ms, plain version {plain3_ms:.3f} ms; "
-        f"bound {b3[0]:.4f} ms by {b3[1]} ({moved} bytes, {walk3:.6e} "
+        f"bound {b3[0]:.4f} ms by {b3[1]} ({moved} bytes: tables, and "
+        f"60 B in, 60 B out and a 4 B key for each ray live at a pass's "
+        f"start; {walk3:.6e} "
         f"operations of the rays' own node and triangle tests; the warps "
         f"execute {warp3:.6e}, {warp3 / walk3:.2f}x: divergence), "
         f"{100 * b3[0] / sum(pass_ms):.2f}% of the passes' time")
@@ -1564,6 +1612,362 @@ def phase_mesh_grad_throughput(rtt, smi, scenes) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the sorted per-bounce engine K6, and K1-lowp (the bf16 sphere stage)
+# ---------------------------------------------------------------------------
+
+# the sorted engine's main-path frames: (A) an API session, (B) a call
+SORTED_A = dict(width=512, height=512, samples_per_pixel=256, depth=4)
+SORTED_B = dict(width=1024, height=1024, samples_per_pixel=32, depth=4)
+LOWP_SMALL = dict(width=64, height=36, samples_per_pixel=4, depth=8, seed=3)
+LOWP_FULL = dict(width=512, height=512, samples_per_pixel=64, depth=8)
+# tests/test_pallas.py:246-251: two unit-scale spheres
+UNIT_SCENE = ("camera origin 0.0 0.0 0.0 aspect 1.0;\n"
+              "material M : Metal color 0.9 0.8 0.7 fuzz 0.1;\n"
+              "material D : Diffuse color 0.4 0.6 0.3;\n"
+              "sphere center -0.6 0.0 -1.6 radius 0.5 material M;\n"
+              "sphere center 0.6 0.1 -1.4 radius 0.45 material D;\n")
+# K1-lowp's sphere test: 14 bfloat16 operations (centre difference, half_b,
+# c) and 5 float32 ones (the discriminant, its root, the two roots); the
+# bf16 ones counted at the H100 SXM's non-tensor bf16 peak, 2x float32
+# (NVIDIA H100 architecture white paper)
+FLOPS_SPHERE_BF16, FLOPS_SPHERE_LOWP_F32 = 14, 5
+PEAK_BF16_SIMT = 133.8e12
+
+
+def phase_sorted_vs_plain(rtt, scenes) -> dict:
+    from raytracer_tpu_torch import ops
+    from raytracer_tpu_torch.ops import tables
+    from raytracer_tpu_torch.ops.cuda import wavefront_sorted as wso
+    dev = torch.device("cuda")
+    log(f"\nK6 vs plain version at {MESH_SMALL}")
+    out = {"worst": 0.0, "plain_ms": {}}
+    cases = [(label, scene, cam, dict(
+        MESH_SMALL, samples_per_pixel=2 if label == "164k" else 4))
+        for label, (scene, cam) in scenes.items()]
+    cases.append(("mesh-1292 37x21 (Morton padding), 3 spp",
+                  *scenes["mesh-1292"],
+                  dict(MESH_SMALL, width=37, height=21, samples_per_pixel=3)))
+    for label, scene, cam, shape in cases:
+        args, kw = _binned_args(ops, tables, scene, cam, dev)
+        k = wso.render_linear_sorted(*args, **shape, **kw)
+        pms, p = _sync_ms(lambda: wso.render_linear_sorted(
+            *args, **shape, **kw, plain=True))
+        out["worst"] = max(out["worst"], compare_image(f"K6 {label}", k, p))
+        got = wso.render_linear_sorted(*args, **shape, **kw, node_exit=False)
+        if not torch.equal(got[0], k[0]) or got[1] != k[1]:
+            raise SystemExit(f"K6 {label}: node_exit off is not bitwise on")
+        out["plain_ms"][label] = pms
+        log(f"  {label}: node_exit off bitwise on; plain version "
+            f"{pms:.3f} ms at spp {shape['samples_per_pixel']}")
+    return out
+
+
+def _lowp_worlds(rtt):
+    return {"default world": rtt.models.default_world(),
+            "unit scene": rtt.parse_input(UNIT_SCENE)}
+
+
+def _lowp_args(world, dev):
+    from raytracer_tpu_torch import ops
+    from raytracer_tpu_torch.ops import tables
+    scene, cam = world.to_scene(), world.to_camera()
+    sph, tri, _, _ = ops.scene_tables(scene, True, dev)
+    return (sph, tri, tables.camera_vec(cam).to(dev)), scene.num_spheres
+
+
+def phase_lowp_vs_plain(rtt) -> float:
+    from raytracer_tpu_torch.ops.cuda import wavefront as wfc
+    dev = torch.device("cuda")
+    log(f"\nK1-lowp vs plain version at {LOWP_SMALL}, parity sign")
+    worst = 0.0
+    for name, world in _lowp_worlds(rtt).items():
+        args, _ = _lowp_args(world, dev)
+        kw = dict(LOWP_SMALL, parity_plane_sign=True, lowp=True)
+        worst = max(worst, compare(f"K1-lowp {name}",
+                                   wfc.render_linear_cuda(*args, **kw),
+                                   wfc.render_linear_ref(*args, **kw)))
+    return worst
+
+
+def _seg_check(name, segs, k1_segs):
+    gap = abs(segs - k1_segs) / k1_segs
+    log(f"  {name}: segments {segs} vs K1's {k1_segs} ({100 * gap:.5f}%)")
+    if gap > 1e-4:
+        raise SystemExit(f"{name}: segments {segs} off K1's {k1_segs} by "
+                         f"more than 0.01%")
+
+
+def _peak_frame(fn):
+    """(host ms, result, peak device memory above what was held) of one
+    call of ``fn``."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    ms, result = _sync_ms(fn)
+    return ms, result, torch.cuda.max_memory_allocated() - held, held
+
+
+def phase_sorted_main_paths(rtt, scenes) -> dict:
+    from raytracer_tpu_torch import api, ops
+    from raytracer_tpu_torch.ops.cuda import wavefront_sorted as wso
+    from raytracer_tpu_torch.render import finalize_image
+    dev = torch.device("cuda")
+    out = {"k6_launches": 0}
+    # (A) an OBJ-10k session at 256 spp
+    scene, cam = scenes["OBJ-10k"]
+    opts = rtt.Options(samples_per_pixel=SORTED_A["samples_per_pixel"],
+                       max_ray_bounces=SORTED_A["depth"])
+    session = api.RenderSession.from_world(scene, cam, SORTED_A["width"],
+                                           SORTED_A["height"], opts,
+                                           device="cuda")
+    engine = session.resolved_engine()
+    log(f"\nsorted main path (A): RenderSession.from_world(OBJ-10k, "
+        f"{SORTED_A}) resolves to {engine}")
+    if engine != "cuda_sorted":
+        raise SystemExit(f"(A) resolved to {engine}")
+    _zero_counts()
+    with _Recorder(wso, "render_linear_sorted") as rec:
+        ms, fb, peak, held = _peak_frame(session.frame)
+    counts = _read_counts()
+    log(f"  (A) frame {ms:.3f} ms, launches {counts}; peak device memory "
+        f"{peak / 2**30:.3f} GiB above the {held / 2**30:.3f} GiB held")
+    if counts != _only(K6=SORTED_A["depth"]):
+        raise SystemExit(f"(A): launches {counts}")
+    out["k6_launches"] += counts["K6"]
+    segs = rec.calls[0][2][1]
+    del rec
+    k1 = ops.render_linear_fast(scene, cam, device=dev, seed=opts.seed,
+                                engine="cuda", **SORTED_A)
+    _lsb_check("(A) session frame", fb, finalize_image(k1[0]).cpu().numpy())
+    _seg_check("(A)", segs, k1[1])
+    out["A"] = dict(ms=ms, peak=peak)
+    del k1, fb
+    # (B) the 164k scene at 1024x1024, 32 spp through render_linear_fast
+    scene, cam = scenes["164k"]
+    engine, _ = ops.resolve_dispatch(scene, None, "auto", dev,
+                                     samples_per_pixel=32, width=1024,
+                                     height=1024)
+    log(f"\nsorted main path (B): render_linear_fast(164k, {SORTED_B}) "
+        f"resolves to {engine}")
+    if engine != "cuda_sorted":
+        raise SystemExit(f"(B) resolved to {engine}")
+    _zero_counts()
+    ms, (mean, segs), peak, held = _peak_frame(lambda: ops.render_linear_fast(
+        scene, cam, device=dev, seed=1, **SORTED_B))
+    counts = _read_counts()
+    log(f"  (B) frame {ms:.3f} ms, launches {counts}; peak device memory "
+        f"{peak / 2**30:.3f} GiB above the {held / 2**30:.3f} GiB held")
+    if counts != _only(K6=SORTED_B["depth"]) or not torch.isfinite(
+            mean).all() or mean.shape != (1024, 1024, 3):
+        raise SystemExit(f"(B): launches {counts}, shape {mean.shape}")
+    out["k6_launches"] += counts["K6"]
+    k1 = ops.render_linear_fast(scene, cam, device=dev, seed=1,
+                                engine="cuda", **SORTED_B)
+    _lsb_check("(B) frame", finalize_image(mean).cpu().numpy(),
+               finalize_image(k1[0]).cpu().numpy())
+    _seg_check("(B)", segs, k1[1])
+    out["B"] = dict(ms=ms, peak=peak)
+    return out
+
+
+def phase_lowp_main_path(rtt) -> int:
+    """The lowp study's frame through ``render_linear_cuda(lowp=True)``:
+    one K1-lowp launch and nothing else."""
+    from raytracer_tpu_torch.ops.cuda import wavefront as wfc
+    dev = torch.device("cuda")
+    args, _ = _lowp_args(rtt.models.default_world(), dev)
+    _zero_counts()
+    img, segs = wfc.render_linear_cuda(*args, **LOWP_FULL, seed=1,
+                                       parity_plane_sign=True, lowp=True)
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    log(f"\nK1-lowp main path: render_linear_cuda(lowp=True), default "
+        f"world {LOWP_FULL}: {segs} segments, launches {counts}")
+    if counts != _only(**{"K1-lowp": 1}) or not torch.isfinite(img).all():
+        raise SystemExit(f"K1-lowp main path: launches {counts}")
+    return counts["K1-lowp"]
+
+
+def _k6_frame_timed(args, kw, runs=5):
+    """One K6 frame, then each of its bounces, sorts and gathers and its
+    image assembly again on the same inputs, timed by CUDA events: (bounce
+    ms, regroup ms, assembly ms, result, bytes the bounces must move)."""
+    from raytracer_tpu_torch.ops.cuda import wavefront_binned as wb
+    from raytracer_tpu_torch.ops.cuda import wavefront_sorted as wso
+    with _Recorder(wso, "sorted_bounce_cuda") as bounces, \
+            _Recorder(wb, "regroup") as regroups, \
+            _Recorder(wso, "assemble_image") as assembly:
+        result = wso.render_linear_sorted(*args, **kw)
+        times = [r.replay_ms(runs) for r in (bounces, regroups, assembly)]
+    return (*times, result, _live_bytes(bounces.calls, wso))
+
+
+def _k6_plain_counted(args, kw):
+    """K6's plain frame, each bounce timed alone (host clock between syncs)
+    and its walk counted by _k6_walk_ops as soon as it returns, so no
+    bounce's records outlive it: (bounce ms, result, the rays' own walk
+    operations, the warps')."""
+    from raytracer_tpu_torch.ops.cuda import wavefront as wfc
+    from raytracer_tpu_torch.ops.cuda import wavefront_sorted as wso
+    real, ms, ops = wso.sorted_bounce_ref, [], [0.0, 0.0]
+
+    def bounce(*a, **k):
+        with _Recorder(wfc, "sphere_hits") as hits:
+            t, out = _sync_ms(lambda: real(*a, **k))
+        lane, warp = _k6_walk_ops([(a, k, out)], hits.calls)
+        ms.append(t)
+        ops[0], ops[1] = ops[0] + lane, ops[1] + warp
+        return out
+    wso.sorted_bounce_ref = bounce
+    try:
+        result = wso.render_linear_sorted(*args, **kw, plain=True)
+    finally:
+        wso.sorted_bounce_ref = real
+    return ms, result, ops[0], ops[1]
+
+
+def _k6_walk_ops(bounces, hits):
+    """_walk_ops summed over the recorded bounces of K6's plain version
+    (sorted_bounce_ref calls and their sphere_hits calls): top, group and
+    sub-leaf bounding spheres, warps of 32 consecutive sorted rays, the
+    root-exit cap."""
+    from raytracer_tpu_torch.ops import tables as tb
+    from raytracer_tpu_torch.ops.cuda import wavefront_binned as wb
+    lane = warp = 0.0
+    for (pa, _, _), (ha, _, h) in zip(bounces, hits):
+        T, ray, alive = pa[0], ha[2], ha[3]
+        levels = [(_sphere_test(T.topb), None, FLOPS_BOUND),
+                  (_sphere_test(T.grpb), _parents(T.topr, T.grpb.shape[1]),
+                   FLOPS_BOUND),
+                  (_sphere_test(T.subb), torch.arange(
+                      T.subb.shape[1], device=alive.device) // tb.GROUP_SUBS,
+                   FLOPS_BOUND)]
+        cap = wb.root_cap(T.root, ray, alive)
+        n = alive.shape[0]
+        wid = torch.arange(n, device=alive.device) // WARP
+        r, w = _walk_ops(ray, alive, torch.minimum(h[0], cap), wid,
+                         n // WARP, levels, T.subn[0])
+        lane, warp = lane + r, warp + w
+    return lane, warp
+
+
+def _psnr(a, b):
+    mse = float(((a - b) ** 2).mean())
+    peak = max(float(a.max()), 1e-6)
+    return 10.0 * np.log10(peak * peak / max(mse, 1e-20))
+
+
+def phase_sorted_throughput(rtt, smi, scenes) -> dict:
+    from raytracer_tpu_torch import ops
+    from raytracer_tpu_torch.ops import tables
+    from raytracer_tpu_torch.ops.cuda import wavefront as wfc
+    from raytracer_tpu_torch.ops.cuda import wavefront_sorted as wso
+    dev = torch.device("cuda")
+    log(f"\nsorted engine throughput on {smi}")
+    out = {}
+    for label, key, shape in (("(A) OBJ-10k", "OBJ-10k", SORTED_A),
+                              ("(B) 164k", "164k", SORTED_B)):
+        scene, cam = scenes[key]
+
+        def run(seed, engine="auto", scene=scene, cam=cam, shape=shape):
+            return ops.render_linear_fast(scene, cam, device=dev, seed=seed,
+                                          engine=engine, **shape)
+        sec, (_, segs) = _median_seconds(run, runs=3)
+        k1_sec, (_, k1_segs) = _median_seconds(lambda s: run(s, "cuda"),
+                                               runs=3)
+        log(f"  {label} {shape}: K6 frames {sec * 1e3:.3f} ms median of 3, "
+            f"{segs} segments -> {segs / sec:.6e} rays/s; K1 "
+            f"{k1_sec * 1e3:.3f} ms -> {k1_segs / k1_sec:.6e} rays/s "
+            f"({k1_sec / sec:.3f}x)")
+        _profile_pass(label, lambda: run(1))
+        args, kw = _binned_args(ops, tables, scene, cam, dev)
+        b_ms, g_ms, a_ms, k6, moved = _k6_frame_timed(
+            args, dict(shape, seed=1, **kw))
+        _, n_rays = wso.ray_layout(shape["width"], shape["height"],
+                                   shape["samples_per_pixel"])
+        log(f"  {label}: K6 bounces {[round(x, 3) for x in b_ms]} ms, sort "
+            f"+ gather {[round(x, 3) for x in g_ms]} ms, image assembly "
+            f"{a_ms[0]:.3f} ms (CUDA events, replayed 5x); {n_rays} ray "
+            f"slots")
+        out[key] = dict(rays_per_s=segs / sec, k1_rays_per_s=k1_segs / k1_sec,
+                        ms=sec * 1e3, bounce_ms=b_ms, regroup_ms=g_ms,
+                        assembly_ms=a_ms[0])
+        if shape is SORTED_A:
+            k6_a, moved_a = k6, moved
+        del k6
+
+    # the crossover K6 against K1 under SORTED_MIN_TRIS, and K6 against K3
+    def frame_sec(scene, cam, engine, shape):
+        return _median_seconds(lambda s: ops.render_linear_fast(
+            scene, cam, device=dev, seed=s, engine=engine, **shape), runs=3)
+    scene, cam = scenes["mesh-1292"]
+    k6_sec, (_, k6_segs) = frame_sec(scene, cam, "cuda_sorted", SORTED_B)
+    k1_sec, (_, k1_segs) = frame_sec(scene, cam, "cuda", SORTED_B)
+    log(f"  crossover, mesh-1292 {SORTED_B}: K6 {k6_sec * 1e3:.3f} ms -> "
+        f"{k6_segs / k6_sec:.6e} rays/s, K1 {k1_sec * 1e3:.3f} ms -> "
+        f"{k1_segs / k1_sec:.6e} rays/s (SORTED_MIN_TRIS "
+        f"{ops.SORTED_MIN_TRIS})")
+    out["crossover"] = (k6_segs / k6_sec, k1_segs / k1_sec)
+    out["vs_k3"] = {}
+    for label, (scene, cam) in scenes.items():
+        k6_sec, (_, k6_segs) = frame_sec(scene, cam, "cuda_sorted",
+                                         MESH_FULL)
+        k3_sec, (_, k3_segs) = frame_sec(scene, cam, "cuda_binned",
+                                         MESH_FULL)
+        log(f"  {label} {MESH_FULL}: K6 {k6_sec * 1e3:.3f} ms -> "
+            f"{k6_segs / k6_sec:.6e} rays/s, K3 {k3_sec * 1e3:.3f} ms -> "
+            f"{k3_segs / k3_sec:.6e} rays/s")
+        out["vs_k3"][label] = (k6_segs / k6_sec, k3_segs / k3_sec)
+    if ops.flush_binned_overflow_checks():
+        raise SystemExit("capped K3 frames overflowed")
+
+    # K6 against its plain version at (A), the main path's frame past 2^24
+    # rays, with both versions' bounce times and K6's bound there
+    scene, cam = scenes["OBJ-10k"]
+    n_sph = scene.num_spheres
+    log(f"\nK6 vs plain version at (A), OBJ-10k {SORTED_A}")
+    args, kw = _binned_args(ops, tables, scene, cam, dev)
+    p_ms, p6, walk, warp = _k6_plain_counted(args, dict(SORTED_A, seed=1,
+                                                        **kw))
+    err = compare_image("K6 (A)", k6_a, p6)
+    del p6
+    b_ms = out["OBJ-10k"]["bounce_ms"]
+    b6 = bound(k6_a[1] * (n_sph * FLOPS_SPHERE + FLOPS_SHADE) + walk,
+               moved_a)
+    log(f"  K6: bounces {sum(b_ms):.3f} ms ({[round(x, 3) for x in b_ms]}), "
+        f"plain version's bounces {sum(p_ms):.3f} ms "
+        f"({[round(x, 1) for x in p_ms]}); bound {b6[0]:.4f} ms by {b6[1]} "
+        f"({moved_a} bytes: tables, and 56 B in, 56 B out and a 4 B key for "
+        f"each ray live at a bounce's start; {walk:.6e} operations of the "
+        f"rays' own node and triangle tests; the warps execute "
+        f"{warp:.6e}, {warp / walk:.2f}x: divergence), "
+        f"{100 * b6[0] / sum(b_ms):.2f}% of the bounces' time")
+    out["k6"] = dict(ms=sum(b_ms), plain_ms=sum(p_ms), err=err, bound=b6)
+
+    # K1-lowp against K1 at the lowp study's frame (parity sign, as
+    # scripts/perf_study.py:342-346)
+    args, n_sph = _lowp_args(rtt.models.default_world(), dev)
+    kw = dict(LOWP_FULL, seed=1, parity_plane_sign=True)
+    f32_ms = _event_ms(lambda: wfc.render_linear_cuda(*args, **kw))
+    low_ms = _event_ms(lambda: wfc.render_linear_cuda(*args, **kw,
+                                                      lowp=True))
+    f32, _ = wfc.render_linear_cuda(*args, **kw)
+    low, lseg = wfc.render_linear_cuda(*args, **kw, lowp=True)
+    plain_ms, plain = _sync_ms(lambda: wfc.render_linear_ref(*args, **kw,
+                                                             lowp=True))
+    err = compare(f"K1-lowp vs plain at {LOWP_FULL}", (low, lseg), plain)
+    b = bound(lseg * (n_sph * (FLOPS_SPHERE_LOWP_F32 + FLOPS_SPHERE_BF16
+                               * PEAK_FLOPS / PEAK_BF16_SIMT)
+                      + FLOPS_SHADE), nbytes(*args, low))
+    log(f"  K1-lowp {low_ms:.3f} ms against K1 {f32_ms:.3f} ms "
+        f"({f32_ms / low_ms:.3f}x; CUDA events, median of 5), plain version "
+        f"{plain_ms:.3f} ms; PSNR against float32 "
+        f"{_psnr(f32, low):.3f} dB; bound {b[0]:.4f} ms by {b[1]}")
+    out["lowp"] = dict(ms=low_ms, plain_ms=plain_ms, err=err, bound=b)
+    return out
+
+
 def main() -> int:
     smi = phase_device()
     rtt = import_port()
@@ -1573,14 +1977,19 @@ def main() -> int:
     k5_err = phase_grad_vs_plain(rtt)
     mesh = phase_mesh_vs_plain(rtt, scenes)
     stream = phase_stream_vs_plain(rtt, scenes)
+    sorted_small = phase_sorted_vs_plain(rtt, scenes)
+    lowp_err = phase_lowp_vs_plain(rtt)
     launches = phase_main_path(rtt)
     train = phase_train(rtt)
     mesh_main = phase_mesh_main_paths(rtt, scenes)
     mgrad = phase_mesh_grad(rtt, scenes)
+    smain = phase_sorted_main_paths(rtt, scenes)
+    lowp_launches = phase_lowp_main_path(rtt)
     perf = phase_throughput(rtt, smi)
     gperf = phase_grad_throughput(rtt, smi)
     mperf = phase_mesh_throughput(rtt, smi, scenes)
     sperf = phase_mesh_grad_throughput(rtt, smi, scenes)
+    soperf = phase_sorted_throughput(rtt, smi, scenes)
     head = perf["default world 512x512 64spp depth 8"]
     big = sperf["164k"]
     print(json.dumps({"kernels": [{
@@ -1634,7 +2043,23 @@ def main() -> int:
         "max_abs_err": max(stream["err"]["K5s"], big["k5s_err"]),
         "ms": big["bwd_ms"], "plain_ms": big["k5s_plain_ms"],
         "bound_ms": big["k5s_bound"][0], "bound_by": big["k5s_bound"][1],
-        "library_ms": None}]}))
+        "library_ms": None}, {
+        "name": "sorted_bounce (K6)", "route": "cuda",
+        "source": "raytracer_tpu_torch/csrc/wavefront_sorted.cu",
+        "replaces": "raytracer_tpu/ops/pallas/wavefront_sorted.py:689",
+        "launches": smain["k6_launches"],
+        "max_abs_err": max(sorted_small["worst"], soperf["k6"]["err"]),
+        "ms": soperf["k6"]["ms"], "plain_ms": soperf["k6"]["plain_ms"],
+        "bound_ms": soperf["k6"]["bound"][0],
+        "bound_by": soperf["k6"]["bound"][1], "library_ms": None}, {
+        "name": "wavefront_render, bf16 spheres (K1-lowp)", "route": "cuda",
+        "source": "raytracer_tpu_torch/csrc/wavefront.cu",
+        "replaces": "raytracer_tpu/ops/pallas/wavefront.py:374",
+        "launches": lowp_launches,
+        "max_abs_err": max(lowp_err, soperf["lowp"]["err"]),
+        "ms": soperf["lowp"]["ms"], "plain_ms": soperf["lowp"]["plain_ms"],
+        "bound_ms": soperf["lowp"]["bound"][0],
+        "bound_by": soperf["lowp"]["bound"][1], "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

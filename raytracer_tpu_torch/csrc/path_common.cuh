@@ -1,13 +1,15 @@
-// Per-ray device code shared by the path-tracing kernels: K1 and K2
-// (wavefront.cu), K5 and K5s (wavefront_bwd.cu), K4 (wavefront_stream.cu)
-// and K3 (wavefront_binned.cu).
+// Per-ray device code shared by the path-tracing kernels: K1, K2 and
+// K1-lowp (wavefront.cu), K5 and K5s (wavefront_bwd.cu), K4
+// (wavefront_stream.cu), K3 (wavefront_binned.cu) and K6
+// (wavefront_sorted.cu).
 //
 // K5 re-traces K1's paths before it sweeps them backward, and K3 and K4
 // must trace the paths K1 traces, so every kernel takes the same hit, draws
 // the same random numbers and scatters the same way for every lane.
 // Everything that decides a path therefore lives here once: the table
 // layouts, the constants (written as the hex of their float32 values),
-// pcg3d, the cluster slab test and the bounding-sphere test, the sphere and
+// pcg3d, the cluster slab test and the bounding-sphere test, the mesh
+// engines' root-exit cap, reference point and key cells, the sphere and
 // triangle steps with their tie rules (spheres need a strictly smaller t,
 // triangles win ties), the sphere stage, the normal fix-ups, the
 // unit-sphere draw, the material scatter and the bounce bookkeeping.  All
@@ -15,6 +17,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace rt_path {
@@ -142,6 +145,74 @@ __device__ __forceinline__ float warp_sum(float v) {
   for (int off = 16; off > 0; off >>= 1)
     v = v + __shfl_xor_sync(FULL_MASK, v, off);
   return v;
+}
+
+// ---- the per-bounce mesh engines' walk and sort keys (K3 and K6) ----
+constexpr int KEY_DEAD = 0x7FFFFFFF;             // dead rays sort last
+constexpr float EXIT_MUL = 0x1.0020c4p+0f;       // f32(1.0005)
+constexpr float EXIT_ADD = 0x1.a36e2ep-14f;      // f32(1e-4)
+constexpr float KEY_SPAN_MIN = 0x1.0c6f7ap-20f;  // f32(1e-6)
+
+// the culling cap of the root bounding sphere (columns [cx, cy, cz, r^2]):
+// the ray's padded exit distance from it; rays that miss it get -BIG and
+// never hold a walk open
+__device__ __forceinline__ float root_exit_cap(const float *__restrict__ root,
+                                               const Ray &r, bool alive) {
+  const float rr2 = root[3];
+  const float ocx = r.ox - root[0];
+  const float ocy = r.oy - root[1];
+  const float ocz = r.oz - root[2];
+  const float rhb = ocx * r.dx + ocy * r.dy + ocz * r.dz;
+  const float rcc = ocx * ocx + ocy * ocy + ocz * ocz - rr2;
+  const float rdisc = rhb * rhb - rcc;
+  const float rexit = -rhb + sqrtf(fmaxf(rdisc, 0.0f));
+  const bool root_p =
+      (rdisc >= 0.0f) && (rexit > T_MIN) && alive && (rr2 > 0.0f);
+  return root_p ? rexit * EXIT_MUL + EXIT_ADD : -BIG;
+}
+
+// node_exit's reference point: of the valid points of refp (4, nr: x, y,
+// z, valid), the one nearest the warp's centroid of live origins (the
+// first of equals), and the warp's largest live origin distance from it
+__device__ __forceinline__ void nearest_ref(const float *__restrict__ refp,
+                                            int nr, const Ray &r, bool alive,
+                                            float alive_f, int &ref_i,
+                                            float &dmax) {
+  const float live = fmaxf(warp_sum(alive_f), 1.0f);
+  const float ccx = warp_sum(r.ox * alive_f) / live;
+  const float ccy = warp_sum(r.oy * alive_f) / live;
+  const float ccz = warp_sum(r.oz * alive_f) / live;
+  float best_d2 = BIG;
+  ref_i = 0;
+  for (int k = 0; k < nr; ++k) {
+    const float ddx = refp[k] - ccx;
+    const float ddy = refp[nr + k] - ccy;
+    const float ddz = refp[2 * nr + k] - ccz;
+    float d2 = ddx * ddx + ddy * ddy + ddz * ddz;
+    d2 = refp[3 * nr + k] > 0.0f ? d2 : BIG;
+    if (d2 < best_d2) {
+      best_d2 = d2;
+      ref_i = k;
+    }
+  }
+  const float rdx = r.ox - refp[ref_i];
+  const float rdy = r.oy - refp[nr + ref_i];
+  const float rdz = r.oz - refp[2 * nr + ref_i];
+  const float d2o = rdx * rdx + rdy * rdy + rdz * rdz;
+  dmax = sqrtf(warp_max(alive ? d2o : 0.0f));
+}
+
+// a sort key's origin cell on one axis: CELLS cells a side of the key box,
+// origins outside it clamped to the edge cells
+template <int CELLS>
+__device__ __forceinline__ int key_cell(float v, float lo, float span) {
+  const float cell = (v - lo) / span * (float)CELLS;
+  return (int)fminf(fmaxf(cell, 0.0f), (float)(CELLS - 1));
+}
+
+// a direction component's 2-bit class
+__device__ __forceinline__ int key_dir(float v) {
+  return (int)fminf(fmaxf((v + 1.0f) * 2.0f, 0.0f), 3.0f);
 }
 
 // one step of _sphere_loop's body; the normal slots carry the centre
@@ -316,16 +387,69 @@ __device__ __forceinline__ Hit no_hit() {
   return h;
 }
 
+// float32 -> the nearest bfloat16 (ties to even) -> float32: the rounding
+// of one bfloat16 operation computed in float32, as PyTorch's bf16 ops do
+__device__ __forceinline__ float bf16r(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// one step of _sphere_loop_lowp's body (K1-lowp): the centre difference,
+// half_b and c in bfloat16 (rl: the ray rounded to bfloat16), each
+// operation rounded once in the Pallas order, then upcast; the root
+// selection and the closest-hit compare in float32, as sphere_step
+__device__ __forceinline__ void sphere_step_lowp(const float *__restrict__ sph,
+                                                 int ns, int si, const Ray &rl,
+                                                 Hit &h) {
+  const float cx = sph[SPH_CX * ns + si];
+  const float cy = sph[SPH_CY * ns + si];
+  const float cz = sph[SPH_CZ * ns + si];
+  const float r2 = sph[SPH_R2 * ns + si];
+  const float ocx = bf16r(rl.ox - bf16r(cx));
+  const float ocy = bf16r(rl.oy - bf16r(cy));
+  const float ocz = bf16r(rl.oz - bf16r(cz));
+  const float half_b = bf16r(bf16r(bf16r(ocx * rl.dx) + bf16r(ocy * rl.dy)) +
+                             bf16r(ocz * rl.dz));
+  const float cc = bf16r(bf16r(bf16r(bf16r(ocx * ocx) + bf16r(ocy * ocy)) +
+                               bf16r(ocz * ocz)) -
+                         bf16r(r2));
+  const float disc = half_b * half_b - cc;
+  const bool ok = (disc >= 0.0f) && (r2 > 0.0f);
+  const float sq = sqrtf(fmaxf(disc, 0.0f));
+  const float root1 = -half_b - sq;
+  const float root2 = -half_b + sq;
+  float t = root1 > T_MIN ? root1 : (root2 > T_MIN ? root2 : BIG);
+  t = ok ? t : BIG;
+  if (t < h.t) {
+    h.t = t;
+    h.nx = cx;
+    h.ny = cy;
+    h.nz = cz;
+    h.kind = sph[SPH_KIND * ns + si];
+    h.ar = sph[SPH_AR * ns + si];
+    h.ag = sph[SPH_AG * ns + si];
+    h.ab = sph[SPH_AB * ns + si];
+    h.fz = sph[SPH_FUZZ * ns + si];
+    h.ir = sph[SPH_IR * ns + si];
+  }
+}
+
 // closest sphere hit (common.rs:60-98): the flat table, or culled warp by
-// warp through cluster AABBs; then _sphere_normals: normalize(p - c),
-// flipped for r < 0.  Loop bounds are warp-uniform.
+// warp through cluster AABBs; with LOWP (K1-lowp) the flat table through
+// sphere_step_lowp, clusters ignored as _sphere_loop_lowp ignores them;
+// then _sphere_normals: normalize(p - c), flipped for r < 0.  Loop bounds
+// are warp-uniform.
+template <bool LOWP = false>
 __device__ __forceinline__ void sphere_hits(const float *__restrict__ sph,
                                             int n_sph,
                                             const float *__restrict__ sphc_b,
                                             const int *__restrict__ sphc_r,
                                             int n_sphc, const Ray &r,
                                             bool alive, Hit &h) {
-  if (n_sphc > 0) {
+  if (LOWP) {
+    const Ray rl = {bf16r(r.ox), bf16r(r.oy), bf16r(r.oz),
+                    bf16r(r.dx), bf16r(r.dy), bf16r(r.dz)};
+    for (int si = 0; si < n_sph; ++si) sphere_step_lowp(sph, n_sph, si, rl, h);
+  } else if (n_sphc > 0) {
     const float ivx = inv_dir(r.dx), ivy = inv_dir(r.dy), ivz = inv_dir(r.dz);
     for (int ci = 0; ci < n_sphc; ++ci) {
       const bool possible =

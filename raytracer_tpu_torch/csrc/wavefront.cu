@@ -1,10 +1,13 @@
-// K1 and K2: the fused forward path-trace kernel, hand-written for Hopper
-// (sm_90a).
+// K1, K2 and K1-lowp: the fused forward path-trace kernel, hand-written for
+// Hopper (sm_90a).
 //
 // Replaces the TPU kernel raytracer_tpu/ops/pallas/wavefront.py
 // render_linear_pallas / _make_kernel: K1 is the pl.pallas_call at :1032,
 // K2 the one at :1015 (stream_tops > 0: the two-level _streamed_tri_walk at
-// :708 over a leaf-aligned triangle table).  Both are this kernel, with the
+// :708 over a leaf-aligned triangle table), K1-lowp the same call with
+// lowp=True (_sphere_loop_lowp at :374: the sphere quadratic in bfloat16,
+// the LOWP template flag, sphere_step_lowp in path_common.cuh; it scans
+// the sphere table flat).  All are this kernel, with the
 // helpers _block_pixel_setup, _pcg3d/_u01, _sphere_loop + _aabb_test,
 // _sphere_normals, _make_tri_body, _resolve_tri_normals and
 // _scatter_bookkeep; K2 is a launch with n_tops > 0, a warp-uniform runtime
@@ -73,7 +76,7 @@ struct Params {
   float inv_spp;
 };
 
-template <bool PARITY>
+template <bool PARITY, bool LOWP>
 __global__ void __launch_bounds__(THREADS)
     wavefront_kernel(const Params p) {
   const int lane = threadIdx.x & 31;
@@ -112,7 +115,8 @@ __global__ void __launch_bounds__(THREADS)
       if (!__any_sync(FULL_MASK, alive)) break;  // warp-uniform early exit
       seg += alive ? 1 : 0;
       Hit h = no_hit();
-      sphere_hits(sph, p.n_sph, p.sphc_b, p.sphc_r, p.n_sphc, r, alive, h);
+      sphere_hits<LOWP>(sph, p.n_sph, p.sphc_b, p.sphc_r, p.n_sphc, r, alive,
+                        h);
       // triangles (common.rs:124-166 via edge constants)
       triangle_hits<PARITY, false>(tri, p.n_tri, p.tric_b, p.tric_r, p.n_tric,
                                    p.trit_b, p.trit_r, p.n_tops, p.n_sph, r,
@@ -136,7 +140,8 @@ __global__ void __launch_bounds__(THREADS)
 
 }  // namespace
 
-// Launch K1, or K2 when n_tops > 0, on `stream`.  Tables are row-major
+// Launch K1, or K2 when n_tops > 0, on `stream`; lowp != 0 takes the
+// bfloat16 sphere stage (K1-lowp).  Tables are row-major
 // (ROWS, N) float32 device arrays; cluster tables may be null with a count
 // of 0.  K2 takes the leaf-aligned triangle table (n_tri = 128 x leaves
 // columns), the leaf bounds and PACKED ranges as triangle clusters, and the
@@ -150,7 +155,7 @@ extern "C" int rt_wavefront_render(
     int n_tops, float *mean, int *segs, int width,
     int height, unsigned int seed_word, int row_offset, int row_stride,
     int shard_rows, int spp, int depth, float inv_spp, int parity_plane_sign,
-    void *stream) {
+    int lowp, void *stream) {
   if (width < 1 || height < 1 || shard_rows < 1 || n_sph < 1 || n_tri < 1 ||
       (n_tops > 0 && (n_tric < 1 || n_tri < n_tric * STREAM_LEAF_PAD)))
     return (int)cudaErrorInvalidValue;
@@ -184,9 +189,13 @@ extern "C" int rt_wavefront_render(
                   (shard_rows + BLOCK_H - 1) / BLOCK_H);
   if (grid.y > 65535) return (int)cudaErrorInvalidConfiguration;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (parity_plane_sign)
-    wavefront_kernel<true><<<grid, THREADS, 0, s>>>(p);
+  if (parity_plane_sign && lowp)
+    wavefront_kernel<true, true><<<grid, THREADS, 0, s>>>(p);
+  else if (parity_plane_sign)
+    wavefront_kernel<true, false><<<grid, THREADS, 0, s>>>(p);
+  else if (lowp)
+    wavefront_kernel<false, true><<<grid, THREADS, 0, s>>>(p);
   else
-    wavefront_kernel<false><<<grid, THREADS, 0, s>>>(p);
+    wavefront_kernel<false, false><<<grid, THREADS, 0, s>>>(p);
   return (int)cudaGetLastError();
 }

@@ -58,10 +58,6 @@ constexpr int ST_OX = 0, ST_OY = 1, ST_OZ = 2, ST_DX = 3, ST_DY = 4,
               ST_EXITB = 14;
 constexpr int KEY_SUB_BITS = 15;
 constexpr int KEY_NOMESH = 0x7FFE0000;
-constexpr int KEY_DEAD = 0x7FFFFFFF;
-constexpr float EXIT_MUL = 0x1.0020c4p+0f;     // f32(1.0005)
-constexpr float EXIT_ADD = 0x1.a36e2ep-14f;    // f32(1e-4)
-constexpr float KEY_SPAN_MIN = 0x1.0c6f7ap-20f;  // f32(1e-6)
 
 struct Params {
   const float *sph;
@@ -113,15 +109,6 @@ __device__ __forceinline__ bool box_entry(const float *__restrict__ a, int nc,
                 fmaxf(fminf(tz0, tz1), 0.0f));
   tfar = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)), fmaxf(tz0, tz1));
   return (tnear <= tfar) && (tfar > T_MIN);
-}
-
-__device__ __forceinline__ int key_cell(float v, float lo, float span) {
-  const float cell = (v - lo) / span * 8.0f;
-  return (int)fminf(fmaxf(cell, 0.0f), 7.0f);
-}
-
-__device__ __forceinline__ int key_dir(float v) {
-  return (int)fminf(fmaxf((v + 1.0f) * 2.0f, 0.0f), 3.0f);
 }
 
 // the culled front-to-back walk over the sorted tables
@@ -233,49 +220,14 @@ __global__ void __launch_bounds__(THREADS) binned_pass_kernel(const Params p) {
   Hit h = no_hit();
   sphere_hits(p.sph, p.n_sph, p.sphc_b, p.sphc_r, p.n_sphc, r, alive, h);
 
-  // root-exit culling cap: rays that miss the root sphere get -BIG and
-  // never hold a walk open
-  const float rr2 = p.root[3];
-  const float ocx = r.ox - p.root[0];
-  const float ocy = r.oy - p.root[1];
-  const float ocz = r.oz - p.root[2];
-  const float rhb = ocx * r.dx + ocy * r.dy + ocz * r.dz;
-  const float rcc = ocx * ocx + ocy * ocy + ocz * ocz - rr2;
-  const float rdisc = rhb * rhb - rcc;
-  const float rexit = -rhb + sqrtf(fmaxf(rdisc, 0.0f));
-  const bool root_p =
-      (rdisc >= 0.0f) && (rexit > T_MIN) && alive && (rr2 > 0.0f);
-  float t_cap = root_p ? rexit * EXIT_MUL + EXIT_ADD : -BIG;
+  float t_cap = root_exit_cap(p.root, r, alive);
   if (!PRIMARY) t_cap = fminf(t_cap, p.state_in[ST_EXITB * n + i]);
 
   // secondary exit: the reference point nearest the warp's live centroid
   const bool use_node = !PRIMARY && p.node_exit;
   int ref_i = 0;
   float dmax = 0.0f;
-  if (use_node) {
-    const float live = fmaxf(warp_sum(alive_f), 1.0f);
-    const float ccx = warp_sum(r.ox * alive_f) / live;
-    const float ccy = warp_sum(r.oy * alive_f) / live;
-    const float ccz = warp_sum(r.oz * alive_f) / live;
-    const int nr = p.n_refs;
-    float best_d2 = BIG;
-    for (int k = 0; k < nr; ++k) {
-      const float ddx = p.refp[k] - ccx;
-      const float ddy = p.refp[nr + k] - ccy;
-      const float ddz = p.refp[2 * nr + k] - ccz;
-      float d2 = ddx * ddx + ddy * ddy + ddz * ddz;
-      d2 = p.refp[3 * nr + k] > 0.0f ? d2 : BIG;
-      if (d2 < best_d2) {
-        best_d2 = d2;
-        ref_i = k;
-      }
-    }
-    const float rdx = r.ox - p.refp[ref_i];
-    const float rdy = r.oy - p.refp[nr + ref_i];
-    const float rdz = r.oz - p.refp[2 * nr + ref_i];
-    const float d2o = rdx * rdx + rdy * rdy + rdz * rdz;
-    dmax = sqrtf(warp_max(alive ? d2o : 0.0f));
-  }
+  if (use_node) nearest_ref(p.refp, p.n_refs, r, alive, alive_f, ref_i, dmax);
   binned_walk<PRIMARY>(p, r, alive, t_cap, use_node, ref_i, dmax, h);
   resolve_tri_normals(h);
   const bool cont = shade(pix_u, s_u, p.bounce, r, h, alive, c);
@@ -347,9 +299,9 @@ __global__ void __launch_bounds__(THREADS) binned_pass_kernel(const Params p) {
   const float spx = fmaxf(p.khi[0] - p.klo[0], KEY_SPAN_MIN);
   const float spy = fmaxf(p.khi[1] - p.klo[1], KEY_SPAN_MIN);
   const float spz = fmaxf(p.khi[2] - p.klo[2], KEY_SPAN_MIN);
-  const int cell = key_cell(r.ox, p.klo[0], spx) * 64 +
-                   key_cell(r.oy, p.klo[1], spy) * 8 +
-                   key_cell(r.oz, p.klo[2], spz);
+  const int cell = key_cell<8>(r.ox, p.klo[0], spx) * 64 +
+                   key_cell<8>(r.oy, p.klo[1], spy) * 8 +
+                   key_cell<8>(r.oz, p.klo[2], spz);
   const int sub_key =
       (key_dir(r.dx) * 16 + key_dir(r.dy) * 4 + key_dir(r.dz)) * 512 + cell;
   const int key =

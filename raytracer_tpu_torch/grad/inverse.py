@@ -10,7 +10,7 @@ ray-tracing baseline).
 Engines of ``make_loss_fn`` (the JAX names, mapped onto the port):
 
   * ``"xla"``    -- autograd through the port's wavefront renderer
-    (``render.render_linear``), on the scene's device;
+    (``render.render_linear``);
   * ``"pallas"`` -- ``ops.diff.render_linear_diff``: K1 forward, K5
     backward (their plain PyTorch versions on CPU tensors).  Under the
     correct plane sign triangles cull through ``ops.diff.build_tri_cull``
@@ -22,10 +22,14 @@ Engines of ``make_loss_fn`` (the JAX names, mapped onto the port):
   * ``"auto"``   -- ``"pallas"`` on a CUDA device, ``"xla"`` on the CPU,
     as the JAX package picks the kernels on a TPU and XLA on a CPU.
 
-The default stays ``"xla"``, the JAX default.  PyTorch's ``torch.optim``
-takes the place of optax: the optimiser owns the param tensors and a train
-step updates them in place.  ``torch.optim.Adam``'s defaults are
-``optax.adam``'s.  Not ported yet, and raising ``NotImplementedError``:
+The default stays ``"xla"``, the JAX default.  ``make_loss_fn`` and ``fit``
+run on ``device`` (default ``"cuda"``, as ``render.Options``): the scene,
+camera, target and params move there, and a CUDA device without a GPU
+raises rather than fall back to the CPU (``device="cpu"`` asks for it).
+PyTorch's ``torch.optim`` takes the place of optax: the optimiser owns the
+param tensors and a train step updates them in place.
+``torch.optim.Adam``'s defaults are ``optax.adam``'s.  Not ported yet, and
+raising ``NotImplementedError``:
 sharded rendering (``mesh=``, the ``parallel/`` item of ROADMAP.md's
 modules still to port) and the silhouette gradients (``grad/silhouette.py``,
 the ``silhouette`` item there).
@@ -64,31 +68,55 @@ def image_loss(rendered_linear: torch.Tensor, target_linear: torch.Tensor
     return torch.mean(diff * diff)
 
 
+def _device(device) -> torch.device:
+    """``device`` as a torch.device with its index; a CUDA device without
+    a GPU raises."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "device='cuda' needs an NVIDIA GPU (torch.cuda.is_available() "
+                "is false); pass device=\"cpu\" to run on the CPU")
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+    elif device.type != "cpu":
+        raise ValueError(f"unsupported device {device}")
+    return device
+
+
+def _move(x, device):
+    """A scene or camera on ``device`` (itself when it is there already, so
+    caches keyed on its identity still hit)."""
+    return x if x.device == device else x.to(device)
+
+
 def make_loss_fn(scene: Scene, camera: Camera, target_linear, *,
                  width: int, height: int, samples_per_pixel: int, depth: int,
                  seed: int = 0, mesh=None, parity_plane_sign: bool = True,
-                 engine: str = "xla") -> Callable:
+                 engine: str = "xla", device="cuda") -> Callable:
     """loss(params) -> scalar tensor, differentiable in the params (a dict
-    of PARAM_FIELDS tensors on the scene's device)."""
+    of PARAM_FIELDS tensors, moved to ``device`` inside the loss)."""
     if mesh is not None:
         raise NotImplementedError(_NO_MESH)
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; expected one of "
                          f"{ENGINES}")
+    device = _device(device)
+    scene, camera = _move(scene, device), _move(camera, device)
     if engine == "auto":
-        engine = "pallas" if scene.device.type == "cuda" else "xla"
+        engine = "pallas" if device.type == "cuda" else "xla"
     # static cluster topology for K1/K5, bounds recomputed from the live
     # vertices every call; only with the correct plane equation
     tri_cull = (diff_mod.build_tri_cull(scene)
                 if engine == "pallas" and not parity_plane_sign else None)
     target = torch.as_tensor(target_linear, dtype=torch.float32,
-                             device=scene.device)
+                             device=device)
     shape = dict(width=width, height=height,
                  samples_per_pixel=samples_per_pixel, depth=depth,
                  seed=seed, parity_plane_sign=parity_plane_sign)
 
     def loss(params: Mapping[str, torch.Tensor]) -> torch.Tensor:
-        s = apply_params(scene, params)
+        s = apply_params(scene, {k: v.to(device) for k, v in params.items()})
         if engine == "pallas":
             img = diff_mod.render_linear_diff(s, camera, tri_cull=tri_cull,
                                               **shape)
@@ -135,7 +163,8 @@ def fit(scene: Scene, camera: Camera, target_linear,
         learning_rate: float = 1e-2, seed: int = 0, mesh=None,
         optimizer: Optional[Callable] = None, silhouette: bool = False,
         checkpoint_path: Optional[str] = None, checkpoint_every: int = 50,
-        resume: bool = True, log_every: int = 0) -> FitResult:
+        resume: bool = True, log_every: int = 0,
+        device="cuda") -> FitResult:
     """Adam descent on the pixel loss, with npz checkpoints and resume.
 
     ``optimizer``: a factory ``optimizer(list_of_tensors)`` returning a
@@ -143,19 +172,22 @@ def fit(scene: Scene, camera: Camera, target_linear,
     ``learning_rate``).  The params are copied: ``params_init`` is never
     changed.  With ``checkpoint_path`` and ``resume``, a checkpoint found
     there restores the params, the optimiser state, the step and the
-    losses, and the fit runs on from that step."""
+    losses, and the fit runs on from that step.  The optimised params live
+    on ``device``."""
     if mesh is not None:
         raise NotImplementedError(_NO_MESH)
     if silhouette:
         raise NotImplementedError(_NO_SILHOUETTE)
-    params = {k: v.detach().clone().requires_grad_(True)
+    device = _device(device)
+    params = {k: v.detach().to(device).clone().requires_grad_(True)
               for k, v in params_init.items()}
     make_opt = optimizer or (lambda ps: torch.optim.Adam(
         ps, lr=learning_rate))
     opt = make_opt(list(params.values()))
     step_fn = make_train_step(make_loss_fn(
         scene, camera, target_linear, width=width, height=height,
-        samples_per_pixel=samples_per_pixel, depth=depth, seed=seed), opt)
+        samples_per_pixel=samples_per_pixel, depth=depth, seed=seed,
+        device=device), opt)
 
     start_step = 0
     losses: List[float] = []
@@ -168,7 +200,7 @@ def fit(scene: Scene, camera: Camera, target_linear,
                                  f"the fit optimises {sorted(params)}")
             with torch.no_grad():
                 for k, v in params.items():
-                    v.copy_(torch.from_numpy(saved[k]))
+                    v.copy_(torch.from_numpy(saved[k]).to(device))
             opt.load_state_dict(opt_state)
 
     for i in range(start_step, steps):

@@ -5,20 +5,27 @@ engine ``resolve_dispatch`` picks:
 
   * ``cuda`` -- K1, the hand-written fused CUDA kernel
     (``ops/cuda/wavefront.py``, ``csrc/wavefront.cu``): parity scenes,
-    scenes under BINNED_MIN_TRIS triangles, and spp the binned engine does
-    not take (spp > 128, which the JAX package sends to its sorted engine,
-    not ported yet);
+    scenes under BINNED_MIN_TRIS triangles, and meshes of BINNED_MIN_TRIS
+    to SORTED_MIN_TRIS triangles at a spp or shape the binned engine does
+    not take;
   * ``cuda_binned`` -- K3, the binned per-bounce engine
     (``ops/cuda/wavefront_binned.py``, ``csrc/wavefront_binned.cu``):
     unbanded renders of exact-plane meshes of at least BINNED_MIN_TRIS
-    triangles;
+    triangles at a spp and shape ``binned_spp_ok`` takes (spp <= 128,
+    under 2^24 ray slots per power-of-two part);
+  * ``cuda_sorted`` -- K6, the sorted per-bounce engine
+    (``ops/cuda/wavefront_sorted.py``, ``csrc/wavefront_sorted.cu``):
+    unbanded renders of exact-plane meshes of at least SORTED_MIN_TRIS
+    triangles that the binned engine does not take (spp > 128, unknown,
+    or past 2^24 ray slots);
   * ``cuda_stream`` -- K4, the streamed big-mesh kernel
     (``ops/cuda/wavefront_stream.py``, ``csrc/wavefront_stream.cu``): the
     banded renders (a progress logger, as the CLI's) of those meshes, one
-    launch per band, since the binned engine renders whole regrouped
-    frames;
-  * ``torch``, ``torch_binned``, ``torch_stream`` -- their plain PyTorch
-    versions, on the tensors' device.  ``auto`` on the CPU is ``torch``.
+    launch per band, since the binned and sorted engines render whole
+    reordered frames;
+  * ``torch``, ``torch_binned``, ``torch_sorted``, ``torch_stream`` --
+    their plain PyTorch versions, on the tensors' device.  ``auto`` on the
+    CPU is ``torch``.
 
 The gradient pass has engines of its own, named as in the JAX package
 (``grad.make_loss_fn``): ``"pallas"`` is ``ops/diff.py``'s
@@ -47,10 +54,11 @@ from ..scene import Scene
 from . import tables
 from .cuda import wavefront
 from .cuda import wavefront_binned as binned
+from .cuda import wavefront_sorted as wso
 from .cuda import wavefront_stream as stream
 
 __all__ = ["CLUSTER_MIN_SPHERES", "CLUSTER_MIN_TRIS", "BINNED_MIN_TRIS",
-           "ENGINES", "binned_spp_ok", "resolve_dispatch",
+           "SORTED_MIN_TRIS", "ENGINES", "binned_spp_ok", "resolve_dispatch",
            "scene_tables", "scene_sorted_tables", "scene_stream_tables",
            "render_linear_fast", "flush_binned_overflow_checks"]
 
@@ -60,15 +68,20 @@ __all__ = ["CLUSTER_MIN_SPHERES", "CLUSTER_MIN_TRIS", "BINNED_MIN_TRIS",
 CLUSTER_MIN_SPHERES = 64
 CLUSTER_MIN_TRIS = 64
 # triangle count from which an exact-plane scene goes to the binned engine
-# (K3); past 128 spp K1 takes it (the JAX package's sorted engine K6 is not
-# ported).  A crossover measured on a TPU v5e, carried as a starting value;
+# (K3).  A crossover measured on a TPU v5e, carried as a starting value;
 # chip_smoke.py measures K1 against K3 on the card.
 BINNED_MIN_TRIS = 1024
+# triangle count from which an exact-plane frame the binned engine does not
+# take goes to the sorted engine (K6) instead of K1.  Measured on a TPU
+# v5e (PERFSTUDY "sorted" study), carried as a starting value;
+# chip_smoke.py measures K1 against K6 on the card at 1292 triangles.
+SORTED_MIN_TRIS = 2048
 
 ENGINES = ("auto", "cuda", "torch", "cuda_binned", "torch_binned",
-           "cuda_stream", "torch_stream")
-_KERNEL_ENGINES = ("cuda", "cuda_binned", "cuda_stream")
+           "cuda_sorted", "torch_sorted", "cuda_stream", "torch_stream")
+_KERNEL_ENGINES = ("cuda", "cuda_binned", "cuda_sorted", "cuda_stream")
 _BINNED = ("cuda_binned", "torch_binned")
+_SORTED = ("cuda_sorted", "torch_sorted")
 _STREAM = ("cuda_stream", "torch_stream")
 
 # Packed tables are memoised on the identity of the scene (interactive
@@ -114,13 +127,15 @@ def resolve_dispatch(scene: Scene, parity_plane_sign, engine: str = "auto",
                      device="cuda", *, samples_per_pixel=None, width=None,
                      height=None):
     """Resolve (engine, parity_plane_sign) for an unbanded render on
-    ``device`` (``render_linear_fast`` turns the binned engines into the
-    streamed ones for banded renders).
+    ``device`` (``render_linear_fast`` turns the binned and sorted engines
+    into the streamed ones for banded renders).
 
-    ``engine="auto"``: on a CUDA device, ``cuda_binned`` (K3) for a scene
-    with the correct plane equation, at least BINNED_MIN_TRIS valid
-    triangles and a spp (and shape, when given) that ``binned_spp_ok``
-    takes, else ``cuda`` (K1); on the CPU ``torch`` (K1's plain version).
+    ``engine="auto"``: on a CUDA device, for a scene with the correct plane
+    equation, ``cuda_binned`` (K3) from BINNED_MIN_TRIS valid triangles at
+    a spp (and shape, when given) that ``binned_spp_ok`` takes, else
+    ``cuda_sorted`` (K6) from SORTED_MIN_TRIS triangles; ``cuda`` (K1)
+    otherwise, and on the CPU ``torch`` (K1's plain version).  The JAX
+    package's order (its ``ops/__init__.py:311-319``).
     A kernel engine on a CPU device raises.  ``parity_plane_sign=None``
     resolves per scene: reference scenes (``exact_planes=False``) get the
     reference's wrong-sign plane equation (common.rs:140-141), procedural
@@ -135,11 +150,13 @@ def resolve_dispatch(scene: Scene, parity_plane_sign, engine: str = "auto",
     if parity_plane_sign is None:
         parity_plane_sign = not scene.exact_planes
     if engine == "auto":
+        n_tris = int(scene.tri_valid.sum())
+        spp_ok = binned_spp_ok(samples_per_pixel, width, height)
         if device.type != "cuda":
             engine = "torch"
-        elif (not parity_plane_sign
-              and int(scene.tri_valid.sum()) >= BINNED_MIN_TRIS
-              and binned_spp_ok(samples_per_pixel, width, height)):
+        elif not parity_plane_sign and n_tris >= SORTED_MIN_TRIS:
+            engine = "cuda_binned" if spp_ok else "cuda_sorted"
+        elif not parity_plane_sign and n_tris >= BINNED_MIN_TRIS and spp_ok:
             engine = "cuda_binned"
         else:
             engine = "cuda"
@@ -251,6 +268,35 @@ def flush_binned_overflow_checks() -> int:
     return bad
 
 
+def _camera_top_order(scene: Scene, camera: Camera, top_bounds, device):
+    """(camera bytes, top order, keys) of ``camera`` over the sorted
+    tables' tops, cached per (scene, camera, device)."""
+    okey = (id(scene), id(camera), str(torch.device(device)))
+    hit = _BINNED_ORDER_CACHE.get(okey)
+    if hit is not None and hit[0]() is scene and hit[1]() is camera:
+        return hit[2]
+    cam_bytes = tables.camera_vec(camera).cpu().numpy().tobytes()
+    order, keys = _camera_order(top_bounds, camera, device)
+    if len(_BINNED_ORDER_CACHE) > 64:
+        _BINNED_ORDER_CACHE.clear()
+    _BINNED_ORDER_CACHE[okey] = (weakref.ref(scene), weakref.ref(camera),
+                                 (cam_bytes, order, keys))
+    return cam_bytes, order, keys
+
+
+def _render_sorted(scene: Scene, camera: Camera, *, width, height,
+                   samples_per_pixel, depth, seed, device, plain):
+    """Sorted-engine frame (K6, or its plain version): the sorted tables
+    and the camera's top order from the caches ``_render_binned`` uses."""
+    (sph, sph_cl, *sorted_t) = scene_sorted_tables(scene, device)
+    _, order, keys = _camera_top_order(scene, camera, sorted_t[4], device)
+    return wso.render_linear_sorted(
+        sph, *sorted_t, tables.camera_vec(camera).to(device), width=width,
+        height=height, samples_per_pixel=samples_per_pixel, depth=depth,
+        seed=seed, sph_clusters=sph_cl, top_order=order, top_keys=keys,
+        plain=plain)
+
+
 def _render_binned(scene: Scene, camera: Camera, *, width, height,
                    samples_per_pixel, depth, seed, device, plain):
     """Binned-engine frame with autotuned caps and overflow checks
@@ -264,17 +310,8 @@ def _render_binned(scene: Scene, camera: Camera, *, width, height,
     index."""
     (sph, sph_cl, *sorted_t) = scene_sorted_tables(scene, device)
     cv = tables.camera_vec(camera).to(device)
-    okey = (id(scene), id(camera), str(torch.device(device)))
-    hit = _BINNED_ORDER_CACHE.get(okey)
-    if hit is not None and hit[0]() is scene and hit[1]() is camera:
-        cam_bytes, order, keys = hit[2]
-    else:
-        cam_bytes = cv.cpu().numpy().tobytes()
-        order, keys = _camera_order(sorted_t[4], camera, device)
-        if len(_BINNED_ORDER_CACHE) > 64:
-            _BINNED_ORDER_CACHE.clear()
-        _BINNED_ORDER_CACHE[okey] = (weakref.ref(scene), weakref.ref(camera),
-                                     (cam_bytes, order, keys))
+    cam_bytes, order, keys = _camera_top_order(scene, camera, sorted_t[4],
+                                               device)
     common = dict(width=width, height=height, depth=depth, seed=seed,
                   sph_clusters=sph_cl, top_order=order, top_keys=keys,
                   plain=plain)
@@ -351,18 +388,20 @@ def render_linear_fast(scene: Scene, camera: Camera, *, width: int,
     the streamed ones); each pixel depends only on its global (row, col),
     so the banded image is bitwise the unbanded one.  A frame of depth 0
     (black) goes to K1 or its plain version: the binned engine traces at
-    least one bounce.
+    least one bounce.  Banded renders of the sorted engines go to the
+    streamed ones too, as the JAX package does.
     """
     engine, parity_plane_sign = resolve_dispatch(
         scene, parity_plane_sign, engine, device,
         samples_per_pixel=samples_per_pixel, width=width, height=height)
-    if engine in _BINNED + _STREAM and parity_plane_sign:
+    if engine in _BINNED + _SORTED + _STREAM and parity_plane_sign:
         raise ValueError(f"engine {engine!r} needs parity_plane_sign=False "
                          f"(its bound culling is unsound with the "
                          f"reference's plane sign)")
     banded = progress is not None and height > 1
-    if engine in _BINNED and banded:
-        engine = "cuda_stream" if engine == "cuda_binned" else "torch_stream"
+    if engine in _BINNED + _SORTED and banded:
+        engine = "cuda_stream" if engine.startswith("cuda") \
+            else "torch_stream"
     if engine in _BINNED and depth < 1:
         engine = "cuda" if engine == "cuda_binned" else "torch"
     kw = dict(width=width, height=height,
@@ -375,6 +414,9 @@ def render_linear_fast(scene: Scene, camera: Camera, *, width: int,
                 f"plane)")
         return _render_binned(scene, camera, device=device,
                               plain=engine == "torch_binned", **kw)
+    if engine in _SORTED:
+        return _render_sorted(scene, camera, device=device,
+                              plain=engine == "torch_sorted", **kw)
     if engine in _STREAM:
         render, args, extra = _stream_call(scene, camera, device,
                                            engine == "torch_stream")

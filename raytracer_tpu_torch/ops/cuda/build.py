@@ -110,7 +110,7 @@ def load() -> ctypes.CDLL:
                    p, p, i,              # tops of the two-level walk (K2)
                    p, p,                 # mean, segs
                    i, i, u, i, i, i,     # width .. shard_rows
-                   i, i, f, i, p]        # spp, depth, inv_spp, parity, stream
+                   i, i, f, i, i, p]     # spp .. parity, lowp, stream
     fn.restype = ctypes.c_int
     fn = lib.rt_wavefront_grad
     fn.argtypes = [p, i, p, i, p,        # sph, n_sph, tri, n_tri, cam
@@ -139,5 +139,16 @@ def load() -> ctypes.CDLL:
                    i, i, u, i, i,        # width .. samp_off
                    i, i, i, i,           # spp, tw, th, ntx
                    i, i, i, i, p]        # primary .. use_super, stream
+    fn.restype = ctypes.c_int
+    fn = lib.rt_sorted_bounce
+    fn.argtypes = [p, i, p, p, i,        # sph, n_sph, sphere clusters
+                   p, p, p, i,           # tri, sub bounds / counts, n_subs
+                   p, p, p, i,           # group / top bounds, top ranges, C
+                   p, p, p,              # camera order, keys, run bounds
+                   p, i, p, p, p,        # reference points, orders, keys, runs
+                   p, p, p, p,           # root, key box, cam
+                   p, p, p, i,           # state in / out, keys, n
+                   i, i, i, i, u,        # width, height, spp, side, seed_word
+                   i, i, i, p]           # bounce, primary, node_exit, stream
     fn.restype = ctypes.c_int
     return lib

@@ -1,5 +1,5 @@
-"""K1 and K2, the fused forward render kernel: CUDA wrapper and plain
-version.
+"""K1, K2 and K1-lowp, the fused forward render kernel: CUDA wrapper and
+plain version.
 
 ``render_linear_cuda`` launches the hand-written CUDA kernel in
 ``raytracer_tpu_torch/csrc/wavefront.cu``, which replaces the TPU kernel
@@ -8,7 +8,10 @@ version.
 into one launch, one thread per pixel.  K2 is the same kernel with
 ``tri_stream``: the two-level walk of ``_streamed_tri_walk`` over a
 leaf-aligned triangle table (``ops.diff.tri_stream_table``), the
-differentiable forward of meshes past the table budget.  On the card it
+differentiable forward of meshes past the table budget.  K1-lowp is the
+same kernel with ``lowp``: the sphere quadratic in bfloat16
+(``_sphere_loop_lowp``, the reduced-precision study of the JAX package),
+a flat scan of the sphere table that ignores its clusters.  On the card it
 is bound by FP32 ALU throughput and branch divergence, not by bytes: the
 scene tables stay in L1/L2 and device memory sees one write of the image.
 The kernel keeps all ray state in registers, gives each warp a compact 8x4
@@ -18,12 +21,15 @@ warp's bounce loop when none of its rays is alive.
 ``render_linear_ref`` is the plain PyTorch version: vectorised over pixels,
 a Python loop over primitives (K2's: over tops, a top's columns at once),
 the kernel's operation order, and the per-ray cluster test applied as a
-mask.  It runs wherever its tensors are (the CPU tests, and on the card to
-check the kernel).
+mask; with ``lowp`` the sphere stage in torch bfloat16 ops, which round
+each result once as the kernel's ``__float2bfloat16_rn`` does.  It runs
+wherever its tensors are (the CPU tests, and on the card to check the
+kernel).
 
 The wrapper uses the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises.  ``LAUNCHES`` counts the
-wrapper's K1 launches, ``STREAM_LAUNCHES`` its K2 launches.
+wrapper's K1 launches, ``STREAM_LAUNCHES`` its K2 launches and
+``LOWP_LAUNCHES`` its K1-lowp launches.
 
 Arguments of both (the keywords of ``render_linear_pallas``):
   sph (SPH_ROWS, S) f32, tri (TRI_ROWS, T) f32, cam_vec (12,) f32 from
@@ -48,11 +54,12 @@ import torch
 from .. import tables
 from ... import rng
 
-__all__ = ["LAUNCHES", "STREAM_LAUNCHES", "STREAM_LEAF_PAD",
+__all__ = ["LAUNCHES", "STREAM_LAUNCHES", "LOWP_LAUNCHES", "STREAM_LEAF_PAD",
            "render_linear_cuda", "render_linear_ref"]
 
 LAUNCHES = 0
 STREAM_LAUNCHES = 0
+LOWP_LAUNCHES = 0
 # columns of a leaf's slot in the two-level walk's leaf-aligned table
 STREAM_LEAF_PAD = 128
 
@@ -165,20 +172,21 @@ def render_linear_cuda(sph, tri, cam_vec, *, width, height,
                        samples_per_pixel, depth, seed=0,
                        parity_plane_sign=True, sph_clusters=None,
                        tri_clusters=None, shard_rows=None, row_offset=0,
-                       row_stride=1, tri_stream=None):
+                       row_stride=1, tri_stream=None, lowp=False):
     """Mean linear radiance [shard_rows, W, 3] + segment count through K1,
-    or K2 with ``tri_stream`` (the plain version for CPU tensors)."""
-    global LAUNCHES, STREAM_LAUNCHES
+    K2 with ``tri_stream``, K1-lowp with ``lowp`` (the plain version for
+    CPU tensors)."""
+    global LAUNCHES, STREAM_LAUNCHES, LOWP_LAUNCHES
     kw = dict(width=width, height=height,
               samples_per_pixel=samples_per_pixel, depth=depth,
               parity_plane_sign=parity_plane_sign, shard_rows=shard_rows,
               row_offset=row_offset, row_stride=row_stride,
               tri_stream=tri_stream)
-    name = "K1" if tri_stream is None else "K2"
+    name = "K1-lowp" if lowp else "K1" if tri_stream is None else "K2"
     if sph.device.type == "cpu":
         return render_linear_ref(sph, tri, cam_vec, seed=seed,
                                  sph_clusters=sph_clusters,
-                                 tri_clusters=tri_clusters, **kw)
+                                 tri_clusters=tri_clusters, lowp=lowp, **kw)
     if sph.device.type != "cuda":
         raise ValueError(f"{name} runs on CUDA tensors, got {sph.device}")
     shard_rows = _check_inputs(sph, tri, cam_vec, sph_clusters,
@@ -206,11 +214,13 @@ def render_linear_cuda(sph, tri, cam_vec, *, width, height,
             ptr(mean), ptr(segs), width, height, rng.seed_word(seed),
             row_offset, row_stride, shard_rows, samples_per_pixel, depth,
             _inv_spp(samples_per_pixel), int(bool(parity_plane_sign)),
-            torch.cuda.current_stream(device).cuda_stream)
+            int(bool(lowp)), torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} (rt_wavefront_render) launch failed: "
                            f"cudaError {rc}")
-    if tri_stream is None:
+    if lowp:
+        LOWP_LAUNCHES += 1
+    elif tri_stream is None:
         LAUNCHES += 1
     else:
         STREAM_LAUNCHES += 1
@@ -248,17 +258,33 @@ def _aabb_possible(bounds_h, ci, ray, inv, t_best, alive):
     return (tnear <= tfar) & (tfar > T_MIN) & (tnear <= t_best) & alive
 
 
-def _sphere_step(col, ray, h, mask):
-    """One sphere of _sphere_loop; h[1:4] carry the winning centre."""
+def _bf16(v: float) -> float:
+    """The float32 value ``v`` rounded to bfloat16 (ties to even)."""
+    return float(torch.tensor(v, dtype=_F32).to(torch.bfloat16))
+
+
+def _sphere_step(col, ray, h, mask, ray_bf16=None):
+    """One sphere of _sphere_loop; h[1:4] carry the winning centre.  With
+    ``ray_bf16`` (the ray in bfloat16) the step of _sphere_loop_lowp: the
+    centre difference, half_b and c in bfloat16, each op rounded once,
+    then upcast."""
     cx, cy, cz, _r, r2, kind, ar, ag, ab, fz, ir = col
     if not r2 > 0.0:        # padding: never hits
         return
-    ox, oy, oz, dx, dy, dz = ray
-    ocx = ox - cx
-    ocy = oy - cy
-    ocz = oz - cz
-    half_b = ocx * dx + ocy * dy + ocz * dz
-    cc = ocx * ocx + ocy * ocy + ocz * ocz - r2
+    if ray_bf16 is None:
+        ox, oy, oz, dx, dy, dz = ray
+        ocx = ox - cx
+        ocy = oy - cy
+        ocz = oz - cz
+        half_b = ocx * dx + ocy * dy + ocz * dz
+        cc = ocx * ocx + ocy * ocy + ocz * ocz - r2
+    else:
+        ox, oy, oz, dx, dy, dz = ray_bf16
+        ocx = ox - _bf16(cx)
+        ocy = oy - _bf16(cy)
+        ocz = oz - _bf16(cz)
+        half_b = (ocx * dx + ocy * dy + ocz * dz).to(_F32)
+        cc = (ocx * ocx + ocy * ocy + ocz * ocz - _bf16(r2)).to(_F32)
     disc = half_b * half_b - cc
     sq = torch.sqrt(torch.clamp_min(disc, 0.0))
     root1 = -half_b - sq
@@ -450,11 +476,17 @@ def new_hit(n, dev):
             full(0.0), full(0.0), full(0.0), full(0.0), full(1.0)]
 
 
-def sphere_hits(sph_h, sphc_h, ray, alive):
-    """Closest sphere hit per ray (flat or culled by cluster AABBs), with
-    the normal recovered from the winning centre (_sphere_normals)."""
+def sphere_hits(sph_h, sphc_h, ray, alive, lowp=False):
+    """Closest sphere hit per ray (flat or culled by cluster AABBs; with
+    ``lowp`` K1-lowp's flat bfloat16 scan), with the normal recovered from
+    the winning centre (_sphere_normals)."""
     h = new_hit(ray[0].shape[0], ray[0].device)
-    _closest_hit(sph_h, sphc_h, _sphere_step, ray, h, alive)
+    if lowp:
+        ray_bf16 = [x.to(torch.bfloat16) for x in ray]
+        for col in sph_h:
+            _sphere_step(col, ray, h, None, ray_bf16)
+    else:
+        _closest_hit(sph_h, sphc_h, _sphere_step, ray, h, alive)
     ox, oy, oz, dx, dy, dz = ray
     snx = ox + h[0] * dx - h[1]
     sny = oy + h[0] * dy - h[2]
@@ -563,7 +595,7 @@ def scatter_bookkeep(ray, h, pix_u, s, b, tp, rad, alive):
 
 def trace_pixels_ref(sph, cam_vec, tri_stage, *, width, height,
                      samples_per_pixel, depth, seed, sph_clusters,
-                     shard_rows, row_offset, row_stride):
+                     shard_rows, row_offset, row_stride, lowp=False):
     """The fused kernels' per-pixel loop in plain PyTorch (K1 and K4):
     samples, camera rays, the bounce loop with its early exit, spheres,
     ``tri_stage(ray, h, alive, b)`` for the triangles, shading.  Returns
@@ -613,7 +645,7 @@ def trace_pixels_ref(sph, cam_vec, tri_stage, *, width, height,
             if not bool(alive.any()):     # dead rays change nothing
                 break
             seg = seg + alive
-            h = sphere_hits(sph_h, sphc_h, ray, alive)
+            h = sphere_hits(sph_h, sphc_h, ray, alive, lowp)
             tri_stage(ray, h, alive, b)
             resolve_tri_normals(h)
             ray, tp, rad, alive = scatter_bookkeep(ray, h, pix_u, s, b, tp,
@@ -630,10 +662,10 @@ def render_linear_ref(sph, tri, cam_vec, *, width, height,
                       samples_per_pixel, depth, seed=0,
                       parity_plane_sign=True, sph_clusters=None,
                       tri_clusters=None, shard_rows=None, row_offset=0,
-                      row_stride=1, tri_stream=None):
-    """K1's (K2's, with ``tri_stream``) plain PyTorch version: same
-    arguments and results as ``render_linear_cuda``, on whatever device the
-    tensors are."""
+                      row_stride=1, tri_stream=None, lowp=False):
+    """K1's (K2's with ``tri_stream``, K1-lowp's with ``lowp``) plain
+    PyTorch version: same arguments and results as ``render_linear_cuda``,
+    on whatever device the tensors are."""
     shard_rows = _check_inputs(
         sph, tri, cam_vec, sph_clusters, tri_clusters, width=width,
         height=height, samples_per_pixel=samples_per_pixel, depth=depth,
@@ -655,4 +687,4 @@ def render_linear_ref(sph, tri, cam_vec, *, width, height,
         sph, cam_vec, tri_stage, width=width, height=height,
         samples_per_pixel=samples_per_pixel, depth=depth, seed=seed,
         sph_clusters=sph_clusters, shard_rows=shard_rows,
-        row_offset=row_offset, row_stride=row_stride)
+        row_offset=row_offset, row_stride=row_stride, lowp=lowp)

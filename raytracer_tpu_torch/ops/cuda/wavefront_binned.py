@@ -350,6 +350,97 @@ def _slot_geometry(slot, *, width, height, spp, tw, th, ntx, seed_word,
     return active0, prow_c, pcol_c, pix_u, s + samp_off
 
 
+def camera_rays(cam_vec, pcol_c, prow_c, pix_u, s_u, active0, w1, h1):
+    """The primary rays of a pass (``camera_ray`` of path_common.cuh at
+    u = (col + jitter) / w1, v = (row + jitter) / h1; ``w1``, ``h1``
+    ints): (ray, throughput, radiance, alive_f)."""
+    dev = pix_u.device
+    n = pix_u.shape[0]
+
+    def full(v):
+        return torch.full((n,), v, dtype=_F32, device=dev)
+
+    cam = cam_vec.cpu().tolist()
+    ju, jv, _ = rng.pcg3d(pix_u, s_u, 0)
+    w1 = torch.tensor(float(w1), dtype=_F32, device=dev)
+    h1 = torch.tensor(float(h1), dtype=_F32, device=dev)
+    u = (pcol_c.to(_F32) + rng.random_f32_from_bits24(ju)) / w1
+    v = (prow_c.to(_F32) + rng.random_f32_from_bits24(jv)) / h1
+    dv = [cam[3 + k] + u * cam[6 + k] + v * cam[9 + k] - cam[k]
+          for k in range(3)]
+    dlen = torch.sqrt(dv[0] * dv[0] + dv[1] * dv[1] + dv[2] * dv[2])
+    ray = [full(cam[0]), full(cam[1]), full(cam[2]), dv[0] / dlen,
+           dv[1] / dlen, dv[2] / dlen]
+    return (ray, (full(1.0), full(1.0), full(1.0)),
+            (full(0.0), full(0.0), full(0.0)),
+            torch.where(active0, 1.0, 0.0).to(_F32))
+
+
+def root_cap(root, ray, alive):
+    """The culling cap of the root bound: each live ray's padded exit
+    distance from the root bounding sphere, -BIG for rays that miss it
+    (they never hold a walk open)."""
+    ox, oy, oz, dx, dy, dz = ray
+    rcx, rcy, rcz, rr2 = root[:, 0].cpu().tolist()
+    ocx, ocy, ocz = ox - rcx, oy - rcy, oz - rcz
+    rhb = ocx * dx + ocy * dy + ocz * dz
+    rcc = ocx * ocx + ocy * ocy + ocz * ocz - rr2
+    rdisc = rhb * rhb - rcc
+    rexit = -rhb + torch.sqrt(torch.clamp_min(rdisc, 0.0))
+    root_p = (rdisc >= 0.0) & (rexit > wf.T_MIN) & alive & (rr2 > 0.0)
+    return torch.where(root_p, rexit * _EXIT_MUL + _EXIT_ADD, -wf.BIG)
+
+
+def visit_positions(T, ray, alive_f, use_node):
+    """Each ray's top visit order, as (row, pos): the ray walks row
+    ``row[i]`` of the orders, where top ci comes at position
+    ``pos[row[i], ci]``.  The camera's order, or with ``use_node`` the
+    order of the reference point nearest the ray's warp's centroid of live
+    origins (the kernels' butterfly sums)."""
+    n, dev = alive_f.shape[0], alive_f.device
+    if use_node:
+        live = torch.clamp_min(_warp_sum(alive_f), 1.0)
+        cen = [_warp_sum(o * alive_f) / live for o in ray[:3]]
+        refp = T.refp
+        dd = [refp[k][None, :] - cen[k][:, None] for k in range(3)]
+        d2 = dd[0] * dd[0] + dd[1] * dd[1] + dd[2] * dd[2]
+        d2 = torch.where(refp[3][None, :] > 0.0, d2, _FAR)
+        row = torch.where(d2.min(dim=1).values < _FAR, d2.argmin(dim=1), 0)
+        orders = T.norder.long()
+    else:
+        row = torch.zeros(n, dtype=torch.int64, device=dev)
+        orders = T.order.long()
+    pos = torch.empty_like(orders)
+    pos.scatter_(1, orders, torch.arange(orders.shape[1], device=dev)
+                 .expand_as(orders))
+    return row, pos
+
+
+def top_hits(T, ray, h, alive, t_cap, row, pos, passes):
+    """Closest triangle hit over the sorted table, a top node at a time for
+    the live rays whose cull test ``passes(ci, cull)`` (cull: min(t_best,
+    t_cap)) holds; ties go to the kernels' visit order (``pos``).  Updates
+    ``h`` in place."""
+    n, dev = alive.shape[0], alive.device
+    subn = T.subn[0].cpu().tolist()
+    topr = T.topr.cpu().tolist()
+    span = T.tri.shape[1]
+    rank = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    for ci in range(T.topr.shape[1]):
+        cols = [torch.arange(li * tables.SUB, li * tables.SUB + subn[li],
+                             device=dev)
+                for g in range(topr[0][ci], topr[1][ci])
+                for li in range(g * tables.GROUP_SUBS,
+                                (g + 1) * tables.GROUP_SUBS) if subn[li]]
+        if not cols:
+            continue
+        cull = torch.minimum(h[0], t_cap)
+        sel = (passes(ci, cull) & alive).nonzero()[:, 0]
+        if sel.numel():
+            wf.tri_block_hits(T.tri, torch.cat(cols), ray, h, rank,
+                              pos[row[sel], ci] * span, sel)
+
+
 def binned_pass_ref(T: PassTables, cam_vec, state, *, n_slots, bounce,
                     primary, is_last, node_exit, use_super, width, height,
                     spp, tw, th, ntx, seed_word, samp_off):
@@ -372,87 +463,39 @@ def binned_pass_ref(T: PassTables, cam_vec, state, *, n_slots, bounce,
         return torch.full((n,), v, dtype=_F32, device=dev)
 
     if primary:
-        cam = cam_vec.cpu().tolist()
-        ju, jv, _ = rng.pcg3d(pix_u, s_u, 0)
-        w1 = torch.tensor(float(max(width - 1, 1)), dtype=_F32, device=dev)
-        h1 = torch.tensor(float(max(height - 1, 1)), dtype=_F32, device=dev)
-        u = (pcol_c.to(_F32) + rng.random_f32_from_bits24(ju)) / w1
-        v = (prow_c.to(_F32) + rng.random_f32_from_bits24(jv)) / h1
-        dv = [cam[3 + k] + u * cam[6 + k] + v * cam[9 + k] - cam[k]
-              for k in range(3)]
-        dlen = torch.sqrt(dv[0] * dv[0] + dv[1] * dv[1] + dv[2] * dv[2])
-        ray = [full(cam[0]), full(cam[1]), full(cam[2]), dv[0] / dlen,
-               dv[1] / dlen, dv[2] / dlen]
-        tp = (full(1.0), full(1.0), full(1.0))
-        rad = (full(0.0), full(0.0), full(0.0))
-        alive_f = torch.where(active0, 1.0, 0.0).to(_F32)
+        ray, tp, rad, alive_f = camera_rays(
+            cam_vec, pcol_c, prow_c, pix_u, s_u, active0,
+            max(width - 1, 1), max(height - 1, 1))
     else:
         ray = [state[k] for k in range(ST_OX, ST_DZ + 1)]
         tp = tuple(state[k] for k in (ST_TPR, ST_TPG, ST_TPB))
         rad = tuple(state[k] for k in (ST_RR, ST_RG, ST_RB))
         alive_f = state[ST_ALIVE]
     alive = alive_f > 0.5
-    ox, oy, oz, dx, dy, dz = ray
     inv = [wf._inv_dir(d) for d in ray[3:]]
 
     h = wf.sphere_hits(T.sph.cpu().t().tolist(),
                        wf._host_clusters(T.sph_clusters), ray, alive)
 
     # the root-exit culling cap, and the previous selection's exit bound
-    rcx, rcy, rcz, rr2 = T.root[:, 0].cpu().tolist()
-    ocx, ocy, ocz = ox - rcx, oy - rcy, oz - rcz
-    rhb = ocx * dx + ocy * dy + ocz * dz
-    rcc = ocx * ocx + ocy * ocy + ocz * ocz - rr2
-    rdisc = rhb * rhb - rcc
-    rexit = -rhb + torch.sqrt(torch.clamp_min(rdisc, 0.0))
-    root_p = (rdisc >= 0.0) & (rexit > wf.T_MIN) & alive & (rr2 > 0.0)
-    t_cap = torch.where(root_p, rexit * _EXIT_MUL + _EXIT_ADD, -wf.BIG)
+    t_cap = root_cap(T.root, ray, alive)
     if not primary:
         t_cap = torch.minimum(t_cap, state[ST_EXITB])
 
     # each ray's top visit order: the camera's, or after the primary pass
     # with node_exit the order of the reference point nearest its warp's
-    # centroid of live origins
-    C = T.topr.shape[1]
-    if node_exit and not primary:
-        live = torch.clamp_min(_warp_sum(alive_f), 1.0)
-        cen = [_warp_sum(o * alive_f) / live for o in (ox, oy, oz)]
-        refp = T.refp
-        dd = [refp[k][None, :] - cen[k][:, None] for k in range(3)]
-        d2 = dd[0] * dd[0] + dd[1] * dd[1] + dd[2] * dd[2]
-        d2 = torch.where(refp[3][None, :] > 0.0, d2, _FAR)
-        row = torch.where(d2.min(dim=1).values < _FAR, d2.argmin(dim=1), 0)
-        orders = T.norder.long()
-    else:
-        row = torch.zeros(n, dtype=torch.int64, device=dev)
-        orders = T.order.long()
-    pos = torch.empty_like(orders)
-    pos.scatter_(1, orders, torch.arange(C, device=dev).expand_as(orders))
-
-    # closest triangle hit, a top node at a time for the rays whose cull
-    # test passes; ties go to the kernel's visit order
-    subn = T.subn[0].cpu().tolist()
-    topr = T.topr.cpu().tolist()
-    span = T.tri.shape[1]
+    # centroid of live origins; the cull test is the top's AABB
+    row, pos = visit_positions(T, ray, alive_f, node_exit and not primary)
     topa = T.topa.cpu().tolist()
-    rank = torch.full((n,), -1, dtype=torch.int64, device=dev)
-    for ci in range(C):
-        cols = [torch.arange(li * tables.SUB, li * tables.SUB + subn[li],
-                             device=dev)
-                for g in range(topr[0][ci], topr[1][ci])
-                for li in range(g * tables.GROUP_SUBS,
-                                (g + 1) * tables.GROUP_SUBS) if subn[li]]
-        if not cols:
-            continue
+
+    def passes(ci, cull):
         box = torch.tensor([[topa[k][ci]] for k in range(6)], dtype=_F32,
                            device=dev)
         tnear, tfar = _aabb_entry(box, ray, inv)
-        cull = torch.minimum(h[0], t_cap)[:, None]
-        passes = ((tnear <= tfar) & (tfar > wf.T_MIN) & (tnear <= cull))[:, 0]
-        sel = (passes & alive).nonzero()[:, 0]
-        if sel.numel():
-            wf.tri_block_hits(T.tri, torch.cat(cols), ray, h, rank,
-                              pos[row[sel], ci] * span, sel)
+        return ((tnear <= tfar) & (tfar > wf.T_MIN)
+                & (tnear <= cull[:, None]))[:, 0]
+
+    top_hits(T, ray, h, alive, t_cap, row, pos, passes)
     wf.resolve_tri_normals(h)
     ray, tp, rad, cont = wf.scatter_bookkeep(ray, h, pix_u, s_u, bounce, tp,
                                              rad, alive)

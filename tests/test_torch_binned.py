@@ -180,13 +180,19 @@ def test_dispatch_on_a_cuda_device():
     for scene in meshes:
         assert ops.resolve_dispatch(scene, None, "auto", "cuda", **shape) \
             == ("cuda_binned", False)
+        # past 128 spp: the sorted engine from SORTED_MIN_TRIS triangles,
+        # K1 under it (mesh_scene(3): 1292)
+        past = ("cuda" if int(scene.tri_valid.sum()) < ops.SORTED_MIN_TRIS
+                else "cuda_sorted")
         assert ops.resolve_dispatch(
             scene, None, "auto", "cuda", **dict(shape, samples_per_pixel=256)
-        ) == ("cuda", False)
+        ) == (past, False)
         assert ops.resolve_dispatch(scene, True, "auto", "cuda", **shape) \
             == ("cuda", True)
         assert ops.resolve_dispatch(scene, None, "auto", "cpu", **shape) \
             == ("torch", False)
+    assert [int(s.tri_valid.sum()) >= ops.SORTED_MIN_TRIS
+            for s in meshes] == [False, True, True]
     small = rtt.models.mesh_scene(2)[0]
     ffi = rtt.models.ffi_example_world().to_scene()
     for scene in (small, ffi):

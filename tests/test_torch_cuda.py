@@ -1,9 +1,11 @@
-"""K1, K2, K5, K5s, K4 and K3 on the card: each CUDA kernel against its
-plain version (K1, K2, K4, K3: equal segment counts, max|diff| <= 1e-5; K5,
+"""K1, K2, K5, K5s, K4, K3, K6 and K1-lowp on the card: each CUDA kernel
+against its plain version (K1, K2, K4, K3, K1-lowp: equal segment counts,
+max|diff| <= 1e-5; K6: the same but for exact triangle ties on at most
+0.01% of the pixels; K5,
 K5s: winner ids equal, dsph, dtri and dcam within 1e-5 * max|ref| + 1e-7),
 K2 and K5s bitwise K1 and K5 over the same leaves, banding, the launch
 counters, a render-then-grad round trip through K1 and K5 and one through
-K2 and K5s, the mesh dispatch through K3 and K4, and input checks.
+K2 and K5s, the mesh dispatch through K3, K4 and K6, and input checks.
 Marked ``cuda``: each test skips where there is no GPU.  On a GPU machine
 without JAX, run them without the suite's JAX conftest:
 ``python -m pytest tests/test_torch_cuda.py -q --noconftest``."""
@@ -341,3 +343,64 @@ def test_mesh_dispatch_launches_k3_unbanded_and_k4_banded(dev):
     assert (wfc.LAUNCHES - counts[0], wb.LAUNCHES - counts[1],
             ws.LAUNCHES - counts[2]) == (0, 3, 16)
     assert ops.flush_binned_overflow_checks() == 0
+
+
+def _image_within(km, pm, ks, ps):
+    """3e's bar: equal segments, max|diff| <= TOL except exact triangle
+    ties on at most 0.01% of the pixels."""
+    d = (km - pm).abs().amax(dim=-1)
+    return ks == ps and int((d > TOL).sum()) <= 1e-4 * d.numel()
+
+
+@pytest.mark.parametrize("shape", [MKW, dict(MKW, width=37, height=21)])
+def test_k6_matches_plain_version(dev, shape):
+    from raytracer_tpu_torch.ops.cuda import wavefront_sorted as wso
+    scene, cam = _mesh("mesh_scene3")
+    (sph, scl, *t) = ops.scene_sorted_tables(scene, dev)
+    order, keys = ops._camera_order(t[4], cam, dev)
+    args = (sph, *t, tables.camera_vec(cam).to(dev))
+    kw = dict(shape, sph_clusters=scl, top_order=order, top_keys=keys)
+    before = wso.LAUNCHES
+    km, ks = wso.render_linear_sorted(*args, **kw)
+    torch.cuda.synchronize()
+    assert wso.LAUNCHES == before + shape["depth"]
+    pm, ps = wso.render_linear_sorted(*args, **kw, plain=True)
+    assert torch.isfinite(km).all() and _image_within(km, pm, ks, ps)
+    got = wso.render_linear_sorted(*args, **kw, node_exit=False)
+    assert torch.equal(got[0], km) and got[1] == ks
+
+
+def test_k6_dispatch_launches_k6_past_128_spp(dev):
+    from raytracer_tpu_torch.ops.cuda import wavefront_sorted as wso
+    scene, cam = _mesh("obj_mesh_scene")
+    shape = dict(width=32, height=18, samples_per_pixel=130, depth=2,
+                 device=dev)
+    before = (wso.LAUNCHES, wfc.LAUNCHES)
+    ops.render_linear_fast(scene, cam, **shape)
+    torch.cuda.synchronize()
+    assert (wso.LAUNCHES - before[0], wfc.LAUNCHES - before[1]) == (2, 0)
+
+
+@pytest.mark.parametrize("name", ["default_world", "unit_scene"])
+def test_k1_lowp_matches_plain_version(dev, name):
+    if name == "default_world":
+        w = rtt.models.default_world()
+    else:
+        w = rtt.parse_input(
+            "camera origin 0.0 0.0 0.0 aspect 1.0;\n"
+            "material M : Metal color 0.9 0.8 0.7 fuzz 0.1;\n"
+            "material D : Diffuse color 0.4 0.6 0.3;\n"
+            "sphere center -0.6 0.0 -1.6 radius 0.5 material M;\n"
+            "sphere center 0.6 0.1 -1.4 radius 0.45 material D;\n")
+    scene, cam = w.to_scene(), w.to_camera()
+    sph, tri, _, _ = ops.scene_tables(scene, True, dev)
+    args = (sph, tri, tables.camera_vec(cam).to(dev))
+    kw = dict(width=64, height=36, samples_per_pixel=4, depth=8, seed=3,
+              lowp=True)
+    before = (wfc.LAUNCHES, wfc.LOWP_LAUNCHES)
+    km, ks = wfc.render_linear_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    assert (wfc.LAUNCHES, wfc.LOWP_LAUNCHES) == (before[0], before[1] + 1)
+    pm, ps = wfc.render_linear_ref(*args, **kw)
+    assert torch.isfinite(km).all() and ks == ps
+    assert float((km - pm).abs().max()) <= TOL

@@ -117,7 +117,8 @@ def case(request, monkeypatch_module):
     target_t = torch.from_numpy(target.copy())
     for engine, name in (("xla", "autograd"), ("pallas", "kernels")):
         out[name] = _port_value_and_grad(
-            tgrad.make_loss_fn(ts, tc, target_t, engine=engine, **kw),
+            tgrad.make_loss_fn(ts, tc, target_t, engine=engine, device="cpu",
+                               **kw),
             params)
     monkeypatch_module.undo()
     return out
@@ -217,9 +218,12 @@ def test_auto_engine_is_autograd_on_cpu():
     params["mat_color"] = params["mat_color"] * 0.7
     from raytracer_tpu_torch.ops.cuda import wavefront_bwd as wb
     before = wb.LAUNCHES
-    auto = tgrad.make_loss_fn(scene, cam, target, engine="auto", **kw)
-    xla = tgrad.make_loss_fn(scene, cam, target, engine="xla", **kw)
+    auto = tgrad.make_loss_fn(scene, cam, target, engine="auto", device="cpu",
+                              **kw)
+    xla = tgrad.make_loss_fn(scene, cam, target, engine="xla", device="cpu",
+                             **kw)
     assert float(auto(params)) == float(xla(params))
     assert wb.LAUNCHES == before
     with pytest.raises(ValueError, match="engine"):
-        tgrad.make_loss_fn(scene, cam, target, engine="cuda", **kw)
+        tgrad.make_loss_fn(scene, cam, target, engine="cuda", device="cpu",
+                           **kw)

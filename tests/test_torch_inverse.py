@@ -50,7 +50,7 @@ def test_albedo_grads_match_fd_unmasked():
     scene, cam = w.to_scene(), w.to_camera()
     kw = dict(width=16, height=16, samples_per_pixel=2, depth=3, seed=7)
     target, _ = rtt.render_linear(scene, cam, **kw)
-    loss = tgrad.make_loss_fn(scene, cam, target, **kw)
+    loss = tgrad.make_loss_fn(scene, cam, target, device="cpu", **kw)
     params = tgrad.extract_params(scene, ["mat_color"])
     params["mat_color"] = params["mat_color"] * 0.8
     p = {"mat_color": params["mat_color"].clone().requires_grad_(True)}
@@ -74,7 +74,7 @@ def test_fit_recovers_albedo():
     start = params0["mat_color"].clone()
     result = tgrad.fit(scene, cam, target, params0, width=16, height=16,
                        samples_per_pixel=2, depth=2, steps=60,
-                       learning_rate=5e-2, seed=2)
+                       learning_rate=5e-2, seed=2, device="cpu")
     assert result.losses[-1] < result.losses[0] * 0.05
     assert np.abs(result.params["mat_color"].numpy() - true_color).max() \
         < 0.12
@@ -91,7 +91,8 @@ def test_checkpoint_resume(tmp_path):
                                   samples_per_pixel=1, depth=2, seed=9)
     params0 = tgrad.extract_params(scene, ["mat_color"])
     params0["mat_color"] = params0["mat_color"] * 0.6
-    kw = dict(width=8, height=8, samples_per_pixel=1, depth=2, seed=9)
+    kw = dict(width=8, height=8, samples_per_pixel=1, depth=2, seed=9,
+              device="cpu")
     ck = str(tmp_path / "ck.npz")
     tgrad.fit(scene, cam, target, params0, steps=10, checkpoint_path=ck,
               checkpoint_every=5, **kw)
@@ -136,7 +137,8 @@ def test_train_steps_through_kernel_path_reduce_loss():
     target, _ = rtt.render_linear(scene, cam, **kw)
     params = tgrad.extract_params(scene, ["mat_color"])
     params["mat_color"] = (params["mat_color"] * 0.7).requires_grad_(True)
-    loss = tgrad.make_loss_fn(scene, cam, target, engine="pallas", **kw)
+    loss = tgrad.make_loss_fn(scene, cam, target, engine="pallas",
+                              device="cpu", **kw)
     step = tgrad.make_train_step(loss, torch.optim.Adam(params.values(),
                                                         lr=1e-2))
     losses = [float(step(params)) for _ in range(5)]
@@ -149,7 +151,7 @@ def test_train_steps_through_kernel_path_reduce_loss():
 def test_unported_options_raise(call):
     w = rtt.models.sphere_and_ground()
     scene, cam = w.to_scene(), w.to_camera()
-    kw = dict(width=4, height=4, samples_per_pixel=1, depth=1)
+    kw = dict(width=4, height=4, samples_per_pixel=1, depth=1, device="cpu")
     target = torch.zeros(4, 4, 3)
     params = tgrad.extract_params(scene, ["mat_color"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -161,3 +163,21 @@ def test_unported_options_raise(call):
             tgrad.fit(scene, cam, target, params, mesh=object(), **kw)
         else:
             tgrad.make_loss_fn(scene, cam, target, mesh=object(), **kw)
+
+
+@pytest.mark.parametrize("call", ["make_loss_fn", "fit"])
+def test_default_device_is_the_card_and_raises_without_one(call,
+                                                           monkeypatch):
+    """make_loss_fn and fit run on device="cuda" unless told otherwise:
+    with no GPU they raise, naming device="cpu", and never fall back."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    w = rtt.models.sphere_and_ground()
+    scene, cam = w.to_scene(), w.to_camera()
+    kw = dict(width=4, height=4, samples_per_pixel=1, depth=1)
+    target = torch.zeros(4, 4, 3)
+    params = tgrad.extract_params(scene, ["mat_color"])
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        if call == "fit":
+            tgrad.fit(scene, cam, target, params, steps=1, **kw)
+        else:
+            tgrad.make_loss_fn(scene, cam, target, engine="auto", **kw)

@@ -199,7 +199,7 @@ def walk_case(request, monkeypatch_module):
         for x in p.values():
             x.requires_grad_(True)
         loss = tgrad.make_loss_fn(ts, tc, torch.from_numpy(target),
-                                  engine="pallas", **kw)(p)
+                                  engine="pallas", device="cpu", **kw)(p)
         loss.backward()
         out[walk] = (float(loss.detach()),
                      {k: x.grad.numpy() for k, x in p.items()}, len(calls))
