@@ -15,7 +15,8 @@ bfloat16 sphere stage K1-lowp, and fails (non-zero exit, no result line)
 if any phase fails:
 
   1. device: a CUDA GPU is required; prints its name and power limit;
-  2. build: compiles csrc/*.cu with nvcc (first use) and prints the time;
+  2. build: compiles csrc/*.cu with nvcc (first use) and prints the time
+     and ptxas's registers, stack and spills of K4 and both K6 instances;
   3. K1 vs its plain version on the card, at 64x36, 4 spp, depth 8: the
      default world, the FFI world (triangles), the random sphere field with
      sphere clusters, the icosphere mesh with triangle clusters, and a
@@ -34,7 +35,8 @@ if any phase fails:
      default run, tiny caps tripping the overflow guard; a K4 band against
      the rows of a whole K4 render.  Bar: equal segments, and max|diff|
      <= 1e-5 except on at most 0.01% of the pixels (exact triangle ties),
-     each reported;
+     each reported; K4's bar is bitwise (max|diff| 0, differing pixels
+     reported);
   3d. K2 and K5s vs their plain versions at 64x36, 2 spp, depth 4,
      correct sign: OBJ-10k in the 128-leaf topology (forced: 128 leaves,
      8 tops) and the 164k scene under its own rule (2048 leaves, 128 tops).
@@ -70,9 +72,10 @@ if any phase fails:
      probe.  ``cli.main`` with ``obj=`` (the OBJ-10k triangles written
      with ``dump_obj``), width 512, 16 spp, depth 8 launches K4 once per
      band and nothing else; that frame through K4 and through its plain
-     version at the CLI's shape and 16 bands, held against each other, the
-     K4 one bitwise the CLI's framebuffer.  Both framebuffers within 1 LSB
-     of K1's render of the same scene on 99.99% of pixels;
+     version at the CLI's shape and 16 bands, bitwise equal (the plain
+     bands' walks counted for K4's bound), the K4 one bitwise the CLI's
+     framebuffer.  Both framebuffers within 1 LSB of K1's render of the
+     same scene on 99.99% of pixels;
   4d. the mesh gradient path at full width, as bench.py:184-222 sets it
      up (target from ``render_linear_fast`` at seed 0, loss at seed 1,
      correct sign, ``make_loss_fn(engine="pallas")``): OBJ-10k at 256x256,
@@ -105,9 +108,10 @@ if any phase fails:
      4, with no overflowed frame, K1's rays/s on the same frames, K3's
      per-pass and regroup times, each capped frame bitwise the uncapped
      one; K3 and K4 against their plain versions at OBJ-10k 512x288, 4 spp,
-     depth 4, with their times and bounds (the node and triangle tests
-     counted from the plain versions' rays and final hits); K4 at the
-     CLI's shape;
+     depth 4 (K4 bitwise), with their times and bounds (the node and
+     triangle tests counted from the plain versions' rays and final hits);
+     K4 at the CLI's frame: one launch, the 16 bands, each band, the bound
+     per band, and both again without sub-leaf bounds;
   5d. mesh gradient throughput: paths/s of both value-and-gradient passes
      (median of 5, host clock ending in a sync); K2 and K5s (164k) and K1
      and K5 (OBJ-10k) by CUDA events at the passes' own tables and image
@@ -119,15 +123,30 @@ if any phase fails:
      one-level against the forced two-level walk;
   5e. sorted throughput: rays/s of (A) and (B) (median of 3) beside K1's
      on the same frames, each under torch.profiler once, K6's bounces,
-     sorts + gathers and image assembly by CUDA events; the crossover K6
-     vs K1 on mesh-1292 at 1024x1024, 32 spp, depth 4 (SORTED_MIN_TRIS);
-     K6 vs K3 at 512x512, 4 spp, depth 4 on the three meshes; K6 vs its
-     plain version at (A) (67.1M rays, past 2^24; bar as 3c), with both
-     versions' bounce times and K6's bound there; K1-lowp vs K1 at the lowp study's frame with both times,
-     the plain version's and PSNR against float32.
+     sorts + gathers (of the live prefix) and image assembly by CUDA
+     events, the slots each bounce launched and the rays live at its
+     start; the crossover K6 vs K1 on mesh-1292 at 1024x1024, 32 spp,
+     depth 4 (SORTED_MIN_TRIS); K6 vs K3 at 512x512, 4 spp, depth 4 on
+     the three meshes; K6 vs its plain version at (A) (67.1M rays, past
+     2^24; bitwise), with both versions' bounce times and K6's bound
+     there; K1-lowp vs K1 at the lowp study's frame with both times, the
+     plain version's and PSNR against float32.
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.
+
+Old against new, in one call on one card (the redesigns of K4 and K6 are
+measured so until the port has a benchmark): ``python3 chip_smoke.py
+--times TREE OUT.json`` times K4 and K6 on their main paths (K4 at the
+CLI's obj= frame, one launch and 16 bands, the same shape with OBJ-10k's
+own camera, and OBJ-10k 512x288; the (A)
+and (B) frames with their bounces, sorts + gathers, assembly, slots and a
+hash of each framebuffer) for the port in the checkout TREE, with its
+ptxas figures, using only entry points every version of the port has; run
+it on an older checkout (``git archive`` unpacked under ``build/``) and on
+this one in turns, then ``python3 chip_smoke.py --compare-times OUT...``
+prints them side by side and fails unless every run's frames are bitwise
+alike.
 """
 
 from __future__ import annotations
@@ -167,13 +186,15 @@ def phase_device() -> str:
     return smi
 
 
-def import_port():
-    """Import the port from this checkout (never an installed copy)."""
-    sys.path.insert(0, str(ROOT))
+def import_port(root=ROOT):
+    """Import the port from the checkout at ``root`` (never an installed
+    copy)."""
+    root = Path(root).resolve()
+    sys.path.insert(0, str(root))
     import raytracer_tpu_torch as rtt
-    if Path(rtt.__file__).resolve().parent.parent != ROOT:
+    if Path(rtt.__file__).resolve().parent.parent != root:
         raise SystemExit(f"chip_smoke: raytracer_tpu_torch imported from "
-                         f"{rtt.__file__}, not from {ROOT}")
+                         f"{rtt.__file__}, not from {root}")
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "raytracer_tpu")]
     if bad:
@@ -181,12 +202,46 @@ def import_port():
     return rtt
 
 
-def phase_build() -> None:
+def phase_build() -> dict:
+    """Build and load the kernels; print ptxas's registers, stack and
+    spills of K4 and both K6 instances from the build's ptxas.log."""
     from raytracer_tpu_torch.ops.cuda import build
     t0 = time.perf_counter()
     lib = build.load()
     log(f"build: {lib._name} built (nvcc) and loaded in "
         f"{time.perf_counter() - t0:.2f}s")
+    return ptxas_report(Path(lib._name).parent / "ptxas.log")
+
+
+# the kernels whose ptxas figures every run prints: mangled-name fragment
+PTXAS_KERNELS = {"K4": "stream_kernel",
+                 "K6 primary": "sorted_bounce_kernelILb1E",
+                 "K6 later bounces": "sorted_bounce_kernelILb0E"}
+
+
+def ptxas_report(path) -> dict:
+    """{kernel: (registers, stack bytes, spill store bytes)} from a
+    ``-Xptxas -v`` log, printed."""
+    import re
+    lines = Path(path).read_text().splitlines() if Path(path).exists() \
+        else []
+    out = {}
+    for name, frag in PTXAS_KERNELS.items():
+        for i, line in enumerate(lines):
+            if "Compiling entry" in line and frag in line:
+                block = " ".join(lines[i:i + 4])
+                regs = re.search(r"Used (\d+) registers", block)
+                stack = re.search(r"(\d+) bytes stack frame", block)
+                spill = re.search(r"(\d+) bytes spill stores", block)
+                out[name] = tuple(int(m.group(1)) if m else -1
+                                  for m in (regs, stack, spill))
+                break
+    log("  ptxas: " + "; ".join(
+        f"{k} {r} registers, {st} B stack, {sp} B spilled"
+        for k, (r, st, sp) in out.items()))
+    if len(out) != len(PTXAS_KERNELS):
+        raise SystemExit(f"ptxas.log lacks {set(PTXAS_KERNELS) - set(out)}")
+    return out
 
 
 def compare(name, kernel, plain):
@@ -729,6 +784,25 @@ def compare_image(name, kernel, plain):
     return err
 
 
+def compare_bitwise(name, kernel, plain):
+    """Hold a kernel's mean image bitwise against its plain version's:
+    max|diff| 0 and equal segments; pixels that differ (an exact triangle
+    tie would show here) are reported."""
+    (km, ks), (pm, ps) = kernel, plain
+    if not torch.isfinite(km).all():
+        raise SystemExit(f"{name}: kernel output is not finite")
+    d = (km - pm).abs().amax(dim=-1)
+    err = float(d.max())
+    bad = (d > 0).nonzero().tolist()
+    log(f"  {name}: max|diff| {err:.3e}, segments kernel {ks} plain {ps}, "
+        f"{len(bad)} pixels differ" + (f": {bad[:8]}" if bad else ""))
+    if bad or ks != ps:
+        raise SystemExit(f"{name}: kernel is not bitwise its plain version "
+                         f"(max|diff| {err}, {len(bad)} pixels, segments "
+                         f"{ks} vs {ps})")
+    return err
+
+
 def _sphere_test(b):
     """bound_test of every ray against every column of b (4, M): [n, M]."""
     from raytracer_tpu_torch.ops.cuda import wavefront_stream as ws
@@ -815,13 +889,44 @@ def _pixel_walk_ops(records, levels, leaf_tris, width):
     return lane, warp
 
 
-def _k4_walk_ops(records, sargs, width):
-    """K4's walk: top and leaf bounding spheres, then a leaf's triangles."""
+def _k4_walk_ops(records, sargs, subb, width, rows, spp):
+    """K4's walk over one band: top, leaf and sub-leaf bounding spheres,
+    then a sub-leaf's triangles, summed over the recorded bounces of its
+    plain version (scatter_bookkeep calls: ray, closest hit, sample, bounce,
+    live lanes, row-major over the band).  The warps are K4's (pixel,
+    sample) warps (thread_layout): one warp's lanes at a bounce are its
+    pixels' samples of one run, so records of one run and bounce trace
+    together."""
+    from raytracer_tpu_torch.ops.cuda import wavefront_stream as ws
     _, _, leafb, leafn, topb, topr, _, _ = sargs
+    dev = leafb.device
+    n_leaves = leafb.shape[1]
+    counts = leafn[0].repeat_interleave(ws.SUBS) - torch.arange(
+        ws.SUBS, device=dev).repeat(n_leaves) * ws.SUB
     levels = [(_sphere_test(topb), None, FLOPS_BOUND),
-              (_sphere_test(leafb), _parents(topr, leafb.shape[1]),
-               FLOPS_BOUND)]
-    return _pixel_walk_ops(records, levels, leafn[0], width)
+              (_sphere_test(leafb), _parents(topr, n_leaves), FLOPS_BOUND),
+              (_sphere_test(subb), torch.arange(
+                  n_leaves * ws.SUBS, device=dev) // ws.SUBS, FLOPS_BOUND)]
+    lay = ws.thread_layout(width, rows, spp)
+    idx = torch.arange(rows * width, device=dev)
+    row, col = idx // width, idx % width
+    pwarp = (row // lay.tile_h) * lay.tiles_x + col // lay.tile_w
+    groups = {}
+    for a, _, _ in records:
+        ray, h, s, b, alive = a[0], a[1], a[3], a[4], a[7]
+        groups.setdefault((s // lay.run, b), []).append(
+            (ray, alive, h[0], pwarp * lay.chunks + s // lay.run))
+    lane = warp = 0.0
+    for recs in groups.values():
+        r, w = _walk_ops([torch.cat([x[0][k] for x in recs])
+                          for k in range(6)],
+                         torch.cat([x[1] for x in recs]),
+                         torch.cat([x[2] for x in recs]),
+                         torch.cat([x[3] for x in recs]),
+                         lay.n_tiles * lay.chunks, levels,
+                         counts.clamp(0, ws.SUB))
+        lane, warp = lane + r, warp + w
+    return lane, warp
 
 
 def _k3_walk_ops(passes, hits):
@@ -896,7 +1001,7 @@ def phase_mesh_vs_plain(rtt, scenes) -> dict:
         k = ws.render_linear_stream_cuda(*args, **shape, **kw)
         pms4, p = _sync_ms(lambda: ws.render_linear_stream_ref(
             *args, **shape, **kw))
-        worst["K4"] = max(worst["K4"], compare_image(f"K4 {label}", k, p))
+        worst["K4"] = max(worst["K4"], compare_bitwise(f"K4 {label}", k, p))
         bargs, bkw = _binned_args(ops, tables, scene, cam, dev)
         k = wb.render_linear_binned(*bargs, **shape, **bkw)
         pms3, p = _sync_ms(lambda: wb.render_linear_binned(
@@ -927,7 +1032,7 @@ def phase_mesh_vs_plain(rtt, scenes) -> dict:
     whole, _ = ws.render_linear_stream_cuda(*args, **shape, **kw)
     band = ws.render_linear_stream_cuda(*args, **shape, **kw, shard_rows=8,
                                         row_offset=9)
-    worst["K4"] = max(worst["K4"], compare_image(
+    worst["K4"] = max(worst["K4"], compare_bitwise(
         "K4 OBJ-10k band rows 9..16", band, ws.render_linear_stream_ref(
             *args, **shape, **kw, shard_rows=8, row_offset=9)))
     if not torch.equal(band[0], whole[9:17]):
@@ -1094,15 +1199,45 @@ def phase_mesh_main_paths(rtt, scenes) -> dict:
     if not np.array_equal(finalize_image(k4[0]).cpu().numpy(), fb):
         raise SystemExit("CLI obj=: the K4 frame is not the CLI's "
                          "framebuffer")
-    plain_ms, p4 = _sync_ms(lambda: ops.render_linear_fast(
-        cli_scene, cli_cam, engine="torch_stream", **cli_kw))
-    k4_err = compare_image(f"K4 vs plain at the CLI's shape (512x"
-                           f"{fb.shape[0]}, 16 spp, depth 8, 16 bands)",
-                           k4, p4)
+    plain_ms, walk = _k4_plain_counted(lambda: ops.render_linear_fast(
+        cli_scene, cli_cam, engine="torch_stream", **cli_kw), cli_kw)
+    p4 = walk.pop("result")
+    k4_err = compare_bitwise(f"K4 vs plain at the CLI's shape (512x"
+                             f"{fb.shape[0]}, 16 spp, depth 8, 16 bands)",
+                             k4, p4)
     log(f"  K4's frame is the CLI's framebuffer; plain version "
         f"{plain_ms:.3f} ms")
     return dict(k3_launches=k3, k4_launches=counts["K4"], k3_err=k3_err,
-                k4_err=k4_err)
+                k4_err=k4_err, cli=dict(scene=cli_scene, cam=cli_cam,
+                                        segs=k4[1], plain_ms=plain_ms,
+                                        **walk))
+
+
+def _k4_plain_counted(render, shape):
+    """(ms, counts) of a render whose K4 plain-version calls (bands) are
+    each timed alone (host clock between syncs) and their walk counted by
+    _k4_walk_ops as soon as they return, so no band's records outlive it:
+    counts holds the rays' own walk operations, the warps', the bands and
+    the result."""
+    from raytracer_tpu_torch.ops.cuda import wavefront as wfc
+    from raytracer_tpu_torch.ops.cuda import wavefront_stream as ws
+    real, ms, ops = ws.render_linear_stream_ref, [], [0.0, 0.0]
+
+    def band(*a, **k):
+        with _Recorder(wfc, "scatter_bookkeep") as rec:
+            t, out = _sync_ms(lambda: real(*a, **k))
+        lane, warp = _k4_walk_ops(rec.calls, a, k["sub_bounds"], k["width"],
+                                  out[0].shape[0], k["samples_per_pixel"])
+        ms.append(t)
+        ops[0], ops[1] = ops[0] + lane, ops[1] + warp
+        return out
+    ws.render_linear_stream_ref = band
+    try:
+        result = render()
+    finally:
+        ws.render_linear_stream_ref = real
+    return sum(ms), dict(walk=ops[0], warp=ops[1], bands=len(ms),
+                         result=result)
 
 
 class _Recorder:
@@ -1172,7 +1307,7 @@ def _k3_frame_timed(args, kw, **extra):
     return pass_ms, regroup_ms, result, _live_bytes(passes.calls, wb)
 
 
-def phase_mesh_throughput(rtt, smi, scenes) -> dict:
+def phase_mesh_throughput(rtt, smi, scenes, cli) -> dict:
     from raytracer_tpu_torch import ops
     from raytracer_tpu_torch.ops import tables
     from raytracer_tpu_torch.ops.cuda import wavefront_binned as wb
@@ -1245,33 +1380,80 @@ def phase_mesh_throughput(rtt, smi, scenes) -> dict:
     ms4 = _event_ms(lambda: ws.render_linear_stream_cuda(
         *sargs, **API_SHAPE, seed=1, **skw))
     k4 = ws.render_linear_stream_cuda(*sargs, **API_SHAPE, seed=1, **skw)
-    with _Recorder(wfc, "sphere_hits") as hits:
+    with _Recorder(wfc, "scatter_bookkeep") as rec:
         plain4_ms, p4 = _sync_ms(lambda: ws.render_linear_stream_ref(
             *sargs, **API_SHAPE, seed=1, **skw))
-    err4 = compare_image("K4 OBJ-10k 512x288", k4, p4)
-    walk4, warp4 = _k4_walk_ops(hits.calls, sargs, API_SHAPE["width"])
-    del hits
+    err4 = compare_bitwise("K4 OBJ-10k 512x288", k4, p4)
+    walk4, warp4 = _k4_walk_ops(rec.calls, sargs, skw["sub_bounds"],
+                                API_SHAPE["width"], API_SHAPE["height"],
+                                API_SHAPE["samples_per_pixel"])
+    del rec
+    tables4 = nbytes(sargs, skw["top_order"], skw["top_keys"],
+                     skw["sub_bounds"])
     b4 = bound(k4[1] * (n_sph * FLOPS_SPHERE + FLOPS_SHADE) + walk4,
-               nbytes(sargs, skw["top_order"], skw["top_keys"], k4[0]))
+               tables4 + nbytes(k4[0]))
     log(f"  K4: {ms4:.3f} ms (CUDA events, median of 5), plain version "
         f"{plain4_ms:.3f} ms; bound {b4[0]:.4f} ms by {b4[1]} "
         f"({walk4:.6e} operations of the rays' own node and triangle "
         f"tests; the warps execute {warp4:.6e}, {warp4 / walk4:.2f}x), "
         f"{100 * b4[0] / ms4:.2f}% of K4's time")
-    # K4 at the CLI's shape: the whole frame in one launch, and 16 bands
-    cli_shape = dict(width=512, height=287, samples_per_pixel=16, depth=8,
-                     seed=1)
-    cli_ms = _event_ms(lambda: ws.render_linear_stream_cuda(
-        *sargs, **cli_shape, **skw))
-    band_ms = _event_ms(lambda: [ws.render_linear_stream_cuda(
-        *sargs, **cli_shape, **skw, shard_rows=18, row_offset=r0)
-        for r0 in range(0, 287, 18)])
-    log(f"  K4 at the CLI's shape {cli_shape}: one launch {cli_ms:.3f} ms, "
-        f"16 bands {band_ms:.3f} ms")
     out.update(k3=dict(ms=sum(pass_ms), plain_ms=plain3_ms, err=err3,
                        bound=b3),
-               k4=dict(ms=ms4, plain_ms=plain4_ms, err=err4, bound=b4))
+               k4_api=dict(ms=ms4, plain_ms=plain4_ms, err=err4, bound=b4))
+    out["k4"] = _k4_cli_times(cli, tables4, n_sph)
     return out
+
+
+def _k4_cli_times(cli, tables_bytes, n_sph) -> dict:
+    """K4 at the CLI's frame (its scene, camera and seed; 512x287, 16 spp,
+    depth 8): one launch of the whole frame, the 16 bands (each band's time
+    too), the bound per band from phase 4c's count of that frame's walk,
+    and the same with sub-leaf culling off (each sub-leaf given its leaf's
+    bound): what the sub-leaf bounds buy."""
+    from raytracer_tpu_torch import ops, rng
+    from raytracer_tpu_torch.ops.cuda import wavefront_stream as ws
+    dev = torch.device("cuda")
+    _, sargs, skw = ops._stream_call(cli["scene"], cli["cam"], dev,
+                                     plain=False)
+    shape = dict(width=512, height=287, samples_per_pixel=16, depth=8,
+                 seed=rng.DEFAULT_SEED)
+    band = -(-287 // 16)
+    starts = range(0, 287, band)
+
+    def timed(kw):
+        one = _event_ms(lambda: ws.render_linear_stream_cuda(*sargs, **shape,
+                                                             **kw))
+        bands = _event_ms(lambda: [ws.render_linear_stream_cuda(
+            *sargs, **shape, **kw, shard_rows=band, row_offset=r0)
+            for r0 in starts])
+        return one, bands
+
+    one, bands = timed(skw)
+    each = [_event_ms(lambda r0=r0: ws.render_linear_stream_cuda(
+        *sargs, **shape, **skw, shard_rows=band, row_offset=r0), runs=3)
+        for r0 in starts]
+    off_one, off_bands = timed(dict(skw, sub_bounds=None))
+    _profile_pass("K4's 16 bands of the CLI's frame", lambda: [
+        ws.render_linear_stream_cuda(*sargs, **shape, **skw, shard_rows=band,
+                                     row_offset=r0) for r0 in starts])
+    n = len(starts)
+    per = bound((cli["segs"] * (n_sph * FLOPS_SPHERE + FLOPS_SHADE)
+                 + cli["walk"]) / n, tables_bytes + band * 512 * 16)
+    log(f"  K4 at the CLI's frame {shape}: one launch {one:.3f} ms, {n} "
+        f"bands {bands:.3f} ms ({bands / one:.2f}x one launch; "
+        f"{bands / n:.3f} ms a band; each band "
+        f"{[round(x, 3) for x in each]} ms); bound {per[0]:.4f} ms a band "
+        f"by {per[1]} ({cli['walk']:.6e} operations of the rays' own node "
+        f"and triangle tests over the frame; the warps execute "
+        f"{cli['warp']:.6e}, {cli['warp'] / cli['walk']:.2f}x), "
+        f"{100 * per[0] * n / bands:.2f}% of the bands' time; plain "
+        f"version {cli['plain_ms'] / n:.3f} ms a band")
+    log(f"  K4 without sub-leaf bounds (each sub-leaf takes its leaf's): "
+        f"one launch {off_one:.3f} ms, {n} bands {off_bands:.3f} ms: the "
+        f"sub-leaf bounds buy {off_one / one:.3f}x / {off_bands / bands:.3f}x")
+    return dict(ms=bands / n, plain_ms=cli["plain_ms"] / n, bound=per,
+                one_ms=one, bands_ms=bands, each_ms=each, off_one_ms=off_one,
+                off_bands_ms=off_bands)
 
 
 # ---------------------------------------------------------------------------
@@ -1792,7 +1974,8 @@ def phase_lowp_main_path(rtt) -> int:
 def _k6_frame_timed(args, kw, runs=5):
     """One K6 frame, then each of its bounces, sorts and gathers and its
     image assembly again on the same inputs, timed by CUDA events: (bounce
-    ms, regroup ms, assembly ms, result, bytes the bounces must move)."""
+    ms, regroup ms, assembly ms, result, bytes the bounces must move,
+    [(slots launched, rays live) at each bounce's start])."""
     from raytracer_tpu_torch.ops.cuda import wavefront_binned as wb
     from raytracer_tpu_torch.ops.cuda import wavefront_sorted as wso
     with _Recorder(wso, "sorted_bounce_cuda") as bounces, \
@@ -1800,7 +1983,11 @@ def _k6_frame_timed(args, kw, runs=5):
             _Recorder(wso, "assemble_image") as assembly:
         result = wso.render_linear_sorted(*args, **kw)
         times = [r.replay_ms(runs) for r in (bounces, regroups, assembly)]
-    return (*times, result, _live_bytes(bounces.calls, wso))
+    slots = [(k["n_rays"], k["width"] * k["height"] * k["spp"])
+             if k["primary"] else
+             (state.shape[1], int((state[wso.ST_ALIVE] > 0.5).sum()))
+             for (_, _, state), k, _ in bounces.calls]
+    return (*times, result, _live_bytes(bounces.calls, wso), slots)
 
 
 def _k6_plain_counted(args, kw):
@@ -1882,17 +2069,18 @@ def phase_sorted_throughput(rtt, smi, scenes) -> dict:
             f"({k1_sec / sec:.3f}x)")
         _profile_pass(label, lambda: run(1))
         args, kw = _binned_args(ops, tables, scene, cam, dev)
-        b_ms, g_ms, a_ms, k6, moved = _k6_frame_timed(
+        b_ms, g_ms, a_ms, k6, moved, slots = _k6_frame_timed(
             args, dict(shape, seed=1, **kw))
         _, n_rays = wso.ray_layout(shape["width"], shape["height"],
                                    shape["samples_per_pixel"])
         log(f"  {label}: K6 bounces {[round(x, 3) for x in b_ms]} ms, sort "
-            f"+ gather {[round(x, 3) for x in g_ms]} ms, image assembly "
-            f"{a_ms[0]:.3f} ms (CUDA events, replayed 5x); {n_rays} ray "
-            f"slots")
+            f"+ gather {[round(x, 3) for x in g_ms]} ms (the prefix live "
+            f"at each bounce's start), image assembly {a_ms[0]:.3f} ms "
+            f"(CUDA events, replayed 5x); {n_rays} ray slots; (slots "
+            f"launched, rays live) at each bounce's start {slots}")
         out[key] = dict(rays_per_s=segs / sec, k1_rays_per_s=k1_segs / k1_sec,
                         ms=sec * 1e3, bounce_ms=b_ms, regroup_ms=g_ms,
-                        assembly_ms=a_ms[0])
+                        assembly_ms=a_ms[0], slots=slots)
         if shape is SORTED_A:
             k6_a, moved_a = k6, moved
         del k6
@@ -1930,7 +2118,7 @@ def phase_sorted_throughput(rtt, smi, scenes) -> dict:
     args, kw = _binned_args(ops, tables, scene, cam, dev)
     p_ms, p6, walk, warp = _k6_plain_counted(args, dict(SORTED_A, seed=1,
                                                         **kw))
-    err = compare_image("K6 (A)", k6_a, p6)
+    err = compare_bitwise("K6 (A)", k6_a, p6)
     del p6
     b_ms = out["OBJ-10k"]["bounce_ms"]
     b6 = bound(k6_a[1] * (n_sph * FLOPS_SPHERE + FLOPS_SHADE) + walk,
@@ -1968,7 +2156,286 @@ def phase_sorted_throughput(rtt, smi, scenes) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# old against new: K4's and K6's times for the port in any checkout
+# ---------------------------------------------------------------------------
+
+def _cli_frame(rtt, scene):
+    """The CLI's obj= frame of ``scene``'s triangles: the scene as the CLI
+    parses it from an OBJ file, and the CLI's camera."""
+    import math
+    from raytracer_tpu_torch import cli
+    from raytracer_tpu_torch.models import obj as obj_mod
+    h = scene.numpy()
+    tris = [(tuple(h.tri_v0[i]), tuple(h.tri_v1[i]), tuple(h.tri_v2[i]),
+             int(h.tri_mat[i])) for i in np.nonzero(h.tri_valid)[0]]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "obj10k.obj"
+        path.write_text(obj_mod.dump_obj(tris))
+        cli_scene = cli._obj_scene(str(path))
+    return cli_scene, rtt.Camera.new_look_at(
+        (0.0, 0.0, 0.0), (0.0, 0.0, -1.0), (0.0, 1.0, 0.0), math.pi / 2.0,
+        1.77778)
+
+
+def measure_k4_k6(rtt, smi) -> dict:
+    """K4's and K6's times on their main paths, with only the entry points
+    that every version of the port has, so the same code times an older
+    checkout (``--times``): K4 at the CLI's obj= frame (one launch, the 16
+    bands) and at OBJ-10k 512x288, 4 spp, depth 4; the (A) and (B) frames
+    (median of 3), their bounces, sorts + gathers and assembly (CUDA
+    events), the slots each bounce launched, peak memory, and a hash of
+    each framebuffer."""
+    import hashlib
+    from raytracer_tpu_torch import ops
+    from raytracer_tpu_torch.ops import tables
+    from raytracer_tpu_torch.ops.cuda import wavefront_stream as ws
+    dev = torch.device("cuda")
+    scenes = mesh_scenes(rtt)
+    out = {"gpu": smi}
+    cli_scene, cli_cam = _cli_frame(rtt, scenes["OBJ-10k"][0])
+    shape = dict(width=512, height=287, samples_per_pixel=16, depth=8,
+                 seed=rtt.rng.DEFAULT_SEED)
+    _, sargs, skw = ops._stream_call(cli_scene, cli_cam, dev, plain=False)
+    one = _event_ms(lambda: ws.render_linear_stream_cuda(*sargs, **shape,
+                                                         **skw))
+    bands = _event_ms(lambda: [ws.render_linear_stream_cuda(
+        *sargs, **shape, **skw, shard_rows=18, row_offset=r0)
+        for r0 in range(0, 287, 18)])
+    frame = ws.render_linear_stream_cuda(*sargs, **shape, **skw)
+    scene, cam = scenes["OBJ-10k"]
+    _, sargs, skw = ops._stream_call(scene, cam, dev, plain=False)
+    api = _event_ms(lambda: ws.render_linear_stream_cuda(
+        *sargs, **API_SHAPE, seed=1, **skw))
+    # the CLI's shape with OBJ-10k's own camera and seed 1, as phase 5c
+    # timed it before it took the CLI's own frame
+    shape = dict(shape, seed=1)
+    own_one = _event_ms(lambda: ws.render_linear_stream_cuda(*sargs, **shape,
+                                                             **skw))
+    own_bands = _event_ms(lambda: [ws.render_linear_stream_cuda(
+        *sargs, **shape, **skw, shard_rows=18, row_offset=r0)
+        for r0 in range(0, 287, 18)])
+    out["k4"] = dict(cli_one_ms=one, cli_bands_ms=bands, api_ms=api,
+                     own_one_ms=own_one, own_bands_ms=own_bands,
+                     cli_segs=frame[1], cli_hash=hashlib.sha256(
+                         frame[0].cpu().numpy().tobytes()).hexdigest())
+    log(f"  K4 CLI frame: one launch {one:.3f} ms, 16 bands {bands:.3f} ms; "
+        f"the CLI's shape with OBJ-10k's camera: one launch {own_one:.3f} "
+        f"ms, 16 bands {own_bands:.3f} ms; OBJ-10k 512x288, 4 spp, depth 4: "
+        f"{api:.3f} ms")
+    for label, key, fshape in (("A", "OBJ-10k", SORTED_A),
+                               ("B", "164k", SORTED_B)):
+        scene, cam = scenes[key]
+
+        def run(seed, scene=scene, cam=cam, fshape=fshape):
+            return ops.render_linear_fast(scene, cam, device=dev, seed=seed,
+                                          **fshape)
+        sec, _ = _median_seconds(run, runs=3)
+        ms, (mean, segs), peak, _ = _peak_frame(lambda: run(1))
+        digest = hashlib.sha256(mean.cpu().numpy().tobytes()).hexdigest()
+        del mean
+        args, kw = _binned_args(ops, tables, scene, cam, dev)
+        b_ms, g_ms, a_ms, res, _, slots = _k6_frame_timed(
+            args, dict(fshape, seed=1, **kw), runs=3)
+        del res
+        out[label] = dict(frame_ms=sec * 1e3, rays_per_s=segs / sec,
+                          segs=segs, bounce_ms=b_ms, regroup_ms=g_ms,
+                          assembly_ms=a_ms[0], slots=slots, peak=peak,
+                          hash=digest)
+        log(f"  ({label}) frame {sec * 1e3:.3f} ms, {segs / sec:.6e} rays/s, "
+            f"{segs} segments; bounces {[round(x, 3) for x in b_ms]} "
+            f"= {sum(b_ms):.3f} ms, sorts + gathers "
+            f"{[round(x, 3) for x in g_ms]} ms, assembly {a_ms[0]:.3f} ms; "
+            f"(slots, live) {slots}; peak {peak / 2**30:.3f} GiB; "
+            f"framebuffer sha256 {digest[:16]}")
+    return out
+
+
+# the staging study: K4 and K6 with their tile fills skipped and the
+# staged test reading the table instead (path_common.cuh patched in a copy
+# of csrc/ under build/): every vote, mask and re-vote as shipped
+UNSTAGED_PATCHES = (
+    ("""  const unsigned dst = (unsigned)__cvta_generic_to_shared(tile) +""",
+     """  return;
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(tile) +"""),
+    ("""  const float4 *q =""",
+     """  tri_step<PARITY, TRACK>(tri, nt, ti, r, h, win);
+  return;
+  const float4 *q ="""),
+)
+
+
+def _unstaged_lib():
+    """The kernels built from a copy of csrc/ with UNSTAGED_PATCHES."""
+    import shutil
+    from raytracer_tpu_torch.ops.cuda import build
+    study = ROOT / "build" / "unstaged_study" / "csrc"
+    if study.exists():
+        shutil.rmtree(study)
+    shutil.copytree(build.CSRC_DIR, study)
+    src = (study / "path_common.cuh").read_text()
+    for a, b in UNSTAGED_PATCHES:
+        if src.count(a) != 1:
+            raise SystemExit(f"staging study: cannot patch {a!r}")
+        src = src.replace(a, b)
+    (study / "path_common.cuh").write_text(src)
+    return build.load(study)
+
+
+def measure_parts(rtt, smi) -> dict:
+    """What each part of the K4 and K6 designs buys, on this checkout: K4
+    at the CLI's obj= frame (one launch, 16 bands) and at OBJ-10k 512x288
+    with and without the staged tiles and with and without sub-leaf
+    bounds; K6 at (A) and (B) with and without the staged tiles and with
+    the live prefix or every slot each bounce (the test-only full-slot
+    loop).  The frames stay bitwise alike across the variants."""
+    import hashlib
+    from raytracer_tpu_torch import ops
+    from raytracer_tpu_torch.ops import tables
+    from raytracer_tpu_torch.ops.cuda import build
+    from raytracer_tpu_torch.ops.cuda import wavefront_sorted as wso
+    from raytracer_tpu_torch.ops.cuda import wavefront_stream as ws
+    dev = torch.device("cuda")
+    staged = build.load()
+    unstaged = _unstaged_lib()
+    real_load = build.load
+    scenes = mesh_scenes(rtt)
+    cli_scene, cli_cam = _cli_frame(rtt, scenes["OBJ-10k"][0])
+    cli = dict(width=512, height=287, samples_per_pixel=16, depth=8,
+               seed=rtt.rng.DEFAULT_SEED)
+    _, cargs, ckw = ops._stream_call(cli_scene, cli_cam, dev, plain=False)
+    scene, cam = scenes["OBJ-10k"]
+    _, aargs, akw = ops._stream_call(scene, cam, dev, plain=False)
+    out, hashes = {"gpu": smi, "k4": {}, "k6": {}}, set()
+    try:
+        for tiles, lib in (("staged", staged), ("unstaged", unstaged)):
+            build.load = lambda csrc=None, lib=lib: lib
+            for subs in (True, False):
+                ckw_v = dict(ckw, sub_bounds=ckw["sub_bounds"] if subs
+                             else None)
+                akw_v = dict(akw, sub_bounds=akw["sub_bounds"] if subs
+                             else None)
+                one = _event_ms(lambda: ws.render_linear_stream_cuda(
+                    *cargs, **cli, **ckw_v))
+                bands = _event_ms(lambda: [ws.render_linear_stream_cuda(
+                    *cargs, **cli, **ckw_v, shard_rows=18, row_offset=r0)
+                    for r0 in range(0, 287, 18)])
+                api = _event_ms(lambda: ws.render_linear_stream_cuda(
+                    *aargs, **API_SHAPE, seed=1, **akw_v))
+                img, _ = ws.render_linear_stream_cuda(*cargs, **cli, **ckw_v)
+                hashes.add(("k4", hashlib.sha256(
+                    img.cpu().numpy().tobytes()).hexdigest()))
+                key = f"{tiles}, sub-leaf bounds {'on' if subs else 'off'}"
+                out["k4"][key] = dict(cli_one_ms=one, cli_bands_ms=bands,
+                                      api_ms=api)
+                log(f"  K4 {key}: CLI frame one launch {one:.3f} ms, 16 "
+                    f"bands {bands:.3f} ms; 512x288 {api:.3f} ms")
+            for label, key, fshape in (("A", "OBJ-10k", SORTED_A),
+                                       ("B", "164k", SORTED_B)):
+                sc, cm = scenes[key]
+                args, kw = _binned_args(ops, tables, sc, cm, dev)
+                for full_n in (False, True):
+                    real = wso.render_linear_sorted
+
+                    def render(*a, full_n=full_n, real=real, **k):
+                        return wso._render_sorted(
+                            *a[:14], a[-1], full_n=full_n, **{
+                                "sph_clusters": None, "top_order": None,
+                                "top_keys": None, "node_exit": True,
+                                "plain": False, **k})
+                    wso.render_linear_sorted = render
+                    try:
+                        b_ms, g_ms, _, res, _, _ = _k6_frame_timed(
+                            args, dict(fshape, seed=1, **kw), runs=3)
+                        sec, _ = _median_seconds(lambda seed: render(
+                            *args, **fshape, seed=seed, **kw), runs=3)
+                    finally:
+                        wso.render_linear_sorted = real
+                    hashes.add((label, hashlib.sha256(
+                        res[0].cpu().numpy().tobytes()).hexdigest(), res[1]))
+                    del res
+                    vkey = (f"{tiles}, "
+                            f"{'every slot' if full_n else 'live prefix'}")
+                    out["k6"][f"{label}: {vkey}"] = dict(
+                        bounce_ms=b_ms, regroup_ms=g_ms, frame_ms=sec * 1e3)
+                    log(f"  K6 ({label}) {vkey}: bounces "
+                        f"{[round(x, 3) for x in b_ms]} = {sum(b_ms):.3f} "
+                        f"ms, sorts + gathers {[round(x, 3) for x in g_ms]}"
+                        f" ms, frame {sec * 1e3:.3f} ms")
+    finally:
+        build.load = real_load
+    log(f"  frames bitwise alike across the variants: "
+        f"{len(hashes) == 3} ({len(hashes)} distinct of K4, (A), (B))")
+    if len(hashes) != 3:
+        raise SystemExit("the design-part variants' frames differ")
+    return out
+
+
+def parts_main(path) -> int:
+    """``--parts OUT``: measure_parts on this checkout, as JSON in OUT."""
+    smi = phase_device()
+    rtt = import_port()
+    phase_build()
+    out = measure_parts(rtt, smi)
+    Path(path).write_text(json.dumps(out))
+    return 0
+
+
+def times_main(tree, path) -> int:
+    """``--times TREE OUT``: measure_k4_k6 for the port in the checkout
+    TREE, its ptxas figures, as JSON in OUT."""
+    smi = phase_device()
+    rtt = import_port(tree)
+    from raytracer_tpu_torch.ops.cuda import build
+    t0 = time.perf_counter()
+    lib = build.load()
+    log(f"times of {Path(rtt.__file__).parent}: built in "
+        f"{time.perf_counter() - t0:.2f}s")
+    ptxas = ptxas_report(Path(lib._name).parent / "ptxas.log")
+    out = measure_k4_k6(rtt, smi)
+    out.update(tree=str(tree), ptxas=ptxas)
+    Path(path).write_text(json.dumps(out))
+    return 0
+
+
+def compare_times_main(paths) -> int:
+    """``--compare-times OLD NEW ...``: the runs' times side by side; fails
+    unless every run's (A), (B) and CLI frames hash alike and their
+    segments agree."""
+    runs = [json.loads(Path(p).read_text()) for p in paths]
+    for p, r in zip(paths, runs):
+        k4 = r["k4"]
+        log(f"{p} ({r['tree']}, {r['gpu']}): K4 CLI frame one launch "
+            f"{k4['cli_one_ms']:.3f} ms, 16 bands {k4['cli_bands_ms']:.3f} "
+            f"ms; CLI shape, OBJ-10k's camera {k4['own_one_ms']:.3f} / "
+            f"{k4['own_bands_ms']:.3f} ms; 512x288 {k4['api_ms']:.3f} ms; "
+            f"ptxas {r['ptxas']}")
+        for f in ("A", "B"):
+            x = r[f]
+            log(f"  ({f}) frame {x['frame_ms']:.3f} ms, "
+                f"{x['rays_per_s']:.6e} rays/s; bounces "
+                f"{[round(v, 3) for v in x['bounce_ms']]} = "
+                f"{sum(x['bounce_ms']):.3f} ms; sorts + gathers "
+                f"{[round(v, 3) for v in x['regroup_ms']]}; assembly "
+                f"{x['assembly_ms']:.3f} ms; (slots, live) {x['slots']}; "
+                f"peak {x['peak'] / 2**30:.3f} GiB")
+    for key in (("A", "hash"), ("A", "segs"), ("B", "hash"), ("B", "segs"),
+                ("k4", "cli_hash"), ("k4", "cli_segs")):
+        vals = {r[key[0]][key[1]] for r in runs}
+        log(f"  {key[0]} {key[1]}: "
+            f"{'equal in every run' if len(vals) == 1 else vals}")
+        if len(vals) != 1:
+            raise SystemExit(f"old and new differ in {key}")
+    return 0
+
+
 def main() -> int:
+    if len(sys.argv) > 1 and sys.argv[1] == "--times":
+        return times_main(sys.argv[2], sys.argv[3])
+    if len(sys.argv) > 1 and sys.argv[1] == "--compare-times":
+        return compare_times_main(sys.argv[2:])
+    if len(sys.argv) > 1 and sys.argv[1] == "--parts":
+        return parts_main(sys.argv[2])
     smi = phase_device()
     rtt = import_port()
     phase_build()
@@ -1987,7 +2454,7 @@ def main() -> int:
     lowp_launches = phase_lowp_main_path(rtt)
     perf = phase_throughput(rtt, smi)
     gperf = phase_grad_throughput(rtt, smi)
-    mperf = phase_mesh_throughput(rtt, smi, scenes)
+    mperf = phase_mesh_throughput(rtt, smi, scenes, mesh_main["cli"])
     sperf = phase_mesh_grad_throughput(rtt, smi, scenes)
     soperf = phase_sorted_throughput(rtt, smi, scenes)
     head = perf["default world 512x512 64spp depth 8"]
@@ -2023,7 +2490,7 @@ def main() -> int:
         "source": "raytracer_tpu_torch/csrc/wavefront_stream.cu",
         "replaces": "raytracer_tpu/ops/pallas/wavefront_stream.py:397",
         "launches": mesh_main["k4_launches"],
-        "max_abs_err": max(mesh["worst"]["K4"], mperf["k4"]["err"],
+        "max_abs_err": max(mesh["worst"]["K4"], mperf["k4_api"]["err"],
                            mesh_main["k4_err"]),
         "ms": mperf["k4"]["ms"], "plain_ms": mperf["k4"]["plain_ms"],
         "bound_ms": mperf["k4"]["bound"][0],

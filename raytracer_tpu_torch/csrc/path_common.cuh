@@ -12,8 +12,10 @@
 // engines' root-exit cap, reference point and key cells, the sphere and
 // triangle steps with their tie rules (spheres need a strictly smaller t,
 // triangles win ties), the sphere stage, the normal fix-ups, the
-// unit-sphere draw, the material scatter and the bounce bookkeeping.  All
-// files are built with -fmad=false, so each expression rounds as written.
+// unit-sphere draw, the material scatter and the bounce bookkeeping; and
+// for K4 and K6 the warp-staged sub-leaf walk and K1's sample-order pixel
+// sum across a warp of (pixel, sample) lanes.  All files are built with
+// -fmad=false, so each expression rounds as written.
 
 #pragma once
 
@@ -304,6 +306,154 @@ __device__ __forceinline__ void tri_step(const float *__restrict__ tri, int nt,
       h.rr = td;
     }
   }
+}
+
+// ---- warp-staged sub-leaves (K4 and K6) ----
+// A warp whose vote passes a 32-column sub-leaf copies the sub-leaf's 16
+// test rows (TRI_NX .. edge 2's w: 2 KB) into a shared-memory tile with
+// cp.async, transposed: triangle j's rows sit at tile[j * STAGE_STRIDE ..],
+// so a test reads them as four broadcast 16-byte loads.  The 4 padding
+// floats make the fill conflict-free: at copy step i, lane k writes row
+// (i + k / 8) % 16 of column k, so the 32 lanes hit 32 distinct banks, and
+// each group of 8 lanes reads 32 consecutive bytes of one row.
+constexpr int STAGE_ROWS = 16;
+constexpr int STAGE_COLS = 32;
+constexpr int STAGE_STRIDE = 20;
+constexpr int STAGE_FLOATS = STAGE_COLS * STAGE_STRIDE;
+
+// start copying columns [col0, col0 + 32) of tri (nt columns, 16 B-aligned
+// rows) into tile; every lane of the warp calls, lane k copying column k
+__device__ __forceinline__ void stage_sub_leaf(float *tile,
+                                               const float *__restrict__ tri,
+                                               int nt, int col0, int lane) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(tile) +
+                       4u * (unsigned)(lane * STAGE_STRIDE);
+  const float *src = tri + col0 + lane;
+#pragma unroll
+  for (int i = 0; i < STAGE_ROWS; ++i) {
+    const int row = (i + (lane >> 3)) & (STAGE_ROWS - 1);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                     dst + 4u * (unsigned)row),
+                 "l"(src + (size_t)row * nt)
+                 : "memory");
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this lane's staged copies are in flight
+template <int N>
+__device__ __forceinline__ void stage_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// tri_step on staged triangle j of tile (column ti of tri for a winner's
+// material rows): the same operations in the same order, on the test rows
+// read as four 16-byte loads.  tri_step itself stays as it is, so the
+// kernels that read the table directly (K1, K2, K3, K5) compile as before.
+template <bool PARITY, bool TRACK>
+__device__ __forceinline__ void tri_step_staged(const float *tile, int j,
+                                                const float *__restrict__ tri,
+                                                int nt, int ti, const Ray &r,
+                                                Hit &h, float win) {
+  const float4 *q = reinterpret_cast<const float4 *>(tile + j * STAGE_STRIDE);
+  const float4 n = q[0];
+  const float4 e4[3] = {q[1], q[2], q[3]};
+  const float tnx = n.x, tny = n.y, tnz = n.z, td = n.w;
+  const float nd = tnx * r.dx + tny * r.dy + tnz * r.dz;
+  const float no = tnx * r.ox + tny * r.oy + tnz * r.oz;
+  const bool par = fabsf(nd) < EPS8;
+  const float nd_safe = par ? 1.0f : nd;
+  const float t = PARITY ? (no + td) / nd_safe : (td - no) / nd_safe;
+  bool ok = (!par) && (t >= T_MIN);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float gx = e4[k].x, gy = e4[k].y, gz = e4[k].z;
+    const float e = r.ox * gx + r.oy * gy + r.oz * gz +
+                    t * (r.dx * gx + r.dy * gy + r.dz * gz) - e4[k].w;
+    ok = ok && (e >= 0.0f);
+  }
+  if (ok && t <= h.t) {
+    const float tkind = tri[TRI_KIND * nt + ti];
+    const float textra = tri[TRI_EXTRA * nt + ti];
+    const bool t_met = (tkind >= 0.5f) && (tkind < 1.5f);
+    const bool t_die = (tkind >= 1.5f) && (tkind < 2.5f);
+    h.t = t;
+    h.nx = tnx;
+    h.ny = tny;
+    h.nz = tnz;
+    h.kind = tkind + 8.0f;
+    h.ar = tri[TRI_AR * nt + ti];
+    h.ag = tri[TRI_AG * nt + ti];
+    h.ab = tri[TRI_AB * nt + ti];
+    h.fz = t_met ? textra : 0.0f;
+    h.ir = t_die ? textra : 1.0f;
+    if (TRACK) {
+      h.win = win;
+      h.rr = td;
+    }
+  }
+}
+
+// The warp-staged walk over the sub-leaves of one node.  Bit s of `mask`
+// marks sub-leaf s (up to 32 in visit order; sub-leaf s lies under parent
+// s / per_parent) whose parent and own bound a live lane passed at the
+// node's start.  The walk tests them in order exactly as the sequential
+// walk would: bound tests are monotone in t_best, so a sub-leaf outside the
+// mask fails later too, and one inside it votes again before its test
+// (sub_ok(s), and parent_ok(p) at the first sub-leaf of each later
+// parent), since the warp's hits may have moved closer.  While one
+// sub-leaf is tested from its tile (test(s, tile)), the copy of the next
+// one in the mask is in flight into the other (stage(s, tile)).  `tiles`
+// holds the warp's two tiles; `mask` is warp-uniform and every lane calls.
+template <class ParentOk, class SubOk, class Stage, class Test>
+__device__ __forceinline__ void staged_sub_walk(unsigned mask, int per_parent,
+                                                float *tiles,
+                                                ParentOk parent_ok,
+                                                SubOk sub_ok, Stage stage,
+                                                Test test) {
+  if (mask == 0u) return;
+  int cur = __ffs(mask) - 1;
+  mask &= mask - 1u;
+  stage(cur, tiles);
+  int buf = 0, parent = cur / per_parent;
+  bool parent_pass = true, first = true;
+  while (true) {
+    const int nxt = mask ? __ffs(mask) - 1 : -1;
+    if (nxt >= 0) {
+      mask &= mask - 1u;
+      stage(nxt, tiles + (buf ^ 1) * STAGE_FLOATS);
+      stage_wait<1>();
+    } else {
+      stage_wait<0>();
+    }
+    __syncwarp();
+    if (cur / per_parent != parent) {
+      parent = cur / per_parent;
+      parent_pass = parent_ok(parent);
+    }
+    if (parent_pass && (first || sub_ok(cur)))
+      test(cur, tiles + buf * STAGE_FLOATS);
+    first = false;
+    __syncwarp();  // the tile just read is refilled next
+    if (nxt < 0) break;
+    cur = nxt;
+    buf ^= 1;
+  }
+}
+
+// K1's sample-order pixel sum (acc = acc + c over samples 0 .. spp - 1,
+// from 0.0f) across a warp of (pixel, sample) lanes: the `run` lanes
+// [p * run, (p + 1) * run) hold samples base .. base + run - 1 of one
+// pixel; their values v below spp are added to acc in sample order, every
+// lane of the pixel computing the same sum.  run is warp-uniform.
+__device__ __forceinline__ float pixel_sum_run(float acc, float v, int run,
+                                               int base, int spp, int lane) {
+  const int first = lane & ~(run - 1);
+  for (int j = 0; j < run; ++j) {
+    const float x = __shfl_sync(FULL_MASK, v, first + j);
+    if (base + j < spp) acc = acc + x;
+  }
+  return acc;
 }
 
 // leaf slot width of the leaf-aligned table of the two-level walk: leaf ci's

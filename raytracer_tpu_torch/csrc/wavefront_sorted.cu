@@ -3,7 +3,9 @@
 //
 // Replaces the TPU kernel raytracer_tpu/ops/pallas/wavefront_sorted.py
 // _bounce_call / _make_bounce_kernel (the pl.pallas_call at :689).  One
-// launch is one bounce of every ray slot of the frame:
+// launch is one bounce of the ray slots the host loop hands it: every slot of
+// the frame on the primary bounce, after it only the live prefix of the
+// sorted rays (ops/cuda/wavefront_sorted.py):
 //   * ray identity: the ray's index (the thread index on the primary bounce,
 //     int32 bits in state plane 13 after a sort) gives the Morton pixel
 //     (compact1by1 of index / spp) and the sample (index % spp), so random
@@ -27,19 +29,29 @@
 //     direction class | fine origin cell]; dead rays get 0x7FFFFFFF and sort
 //     last.  The key is _sort_keys fused into the kernel.
 //
-// What bounds it on the card: FP32 issue and divergence in the walk, as K1
-// and K3; the state costs 2 x 56 bytes per ray and bounce (read and written
-// once) and the key 4.  The warp of 32 consecutive sorted rays is the
-// culling unit that the TPU's (16 x 128)-lane block was: the sort by
-// [cell | direction | cell] fills each warp with rays of one neighbourhood
-// and one direction cone, which is what its __any_sync votes need.
-// Triangles are read straight from device memory (the column is
-// warp-uniform: one broadcast load; the 164k-triangle table's 25 MB stay in
-// the 50 MB L2): the TPU kernel's per-top DMA into scalar memory has no
-// counterpart here, and staging a passing top's 96 KB in shared memory
-// (cp.async / TMA) is later work.  PRIMARY is a template parameter (it
-// changes what is read); node_exit and the key output are uniform over a
-// launch, so they are plain flags.
+// What bounds it on the card: not arithmetic.  At the OBJ-10k frame of
+// 512x512, 256 spp, depth 4 the warps' union of node and triangle tests is
+// about 3.8e11 operations, some 6 ms at the float32 peak, against ~60 ms of
+// bounces: the walk waits on dependent loads (each triangle test read 16
+// plane-strided words from the table) and on divergence; and every slot,
+// dead or alive, read and wrote its 56-byte state each bounce.  The warp
+// of 32 consecutive sorted rays is the culling unit that the TPU's
+// (16 x 128)-lane block was: the sort by [cell | direction | cell] fills
+// each warp with rays of one neighbourhood and one direction cone, which is
+// what its __any_sync votes need.
+//
+// The design for this card:
+//   * a launch covers only the live prefix (dead rays sort last and stay
+//     dead), so the later bounces touch a fraction of the slots;
+//   * warp-staged sub-leaves (path_common.cuh): a top's passing groups and
+//     sub-leaves are voted once at its start; each passing sub-leaf's test
+//     rows are copied with cp.async into one of the warp's two shared tiles
+//     while the previous one is tested, and tested from there as four
+//     broadcast 16-byte loads a triangle.  Each sub-leaf votes again just
+//     before its test, so the warp tests exactly the sub-leaves, in exactly
+//     the order, of the unstaged walk, and ties resolve as before;
+//   * PRIMARY is a template parameter (it changes what is read); node_exit
+//     and the key output are uniform over a launch, so they are flags.
 //
 // Numerics: -fmad=false and the Pallas body's operation order, so the plain
 // version sorted_bounce_ref gives the same floats; the warp reductions are
@@ -105,16 +117,26 @@ __device__ __forceinline__ int compact1by1(int x) {
   return (x | (x >> 8)) & 0x0000FFFF;
 }
 
-// the culled front-to-back walk over runs -> tops -> groups -> sub-leaves
+// the culled front-to-back walk over runs -> tops -> groups -> sub-leaves,
+// a top's passing sub-leaves staged through the warp's tiles
 template <bool PRIMARY>
 __device__ __forceinline__ void sorted_walk(const Params &p, const Ray &r,
                                             bool alive, float t_cap,
                                             bool use_node, int ref_i,
-                                            float dmax, Hit &h) {
+                                            float dmax, Hit &h, float *tiles,
+                                            int lane) {
   const int C = p.n_tops;
   const int R8 = (C + RUN - 1) / RUN;
   const int G = p.n_subs / GROUP_SUBS;
   const int n_cols = p.n_subs * SUB;
+  auto group_ok = [&](int g) {
+    return __any_sync(FULL_MASK, alive && bound_test(p.grpb, G, g, r,
+                                                     fminf(h.t, t_cap)));
+  };
+  auto sub_ok = [&](int li) {
+    return __any_sync(FULL_MASK, alive && bound_test(p.subb, p.n_subs, li, r,
+                                                     fminf(h.t, t_cap)));
+  };
   for (int ri = 0; ri < R8; ++ri) {
     const int ki = min(ri * RUN, C - 1);
     const float exit_key = PRIMARY    ? p.keys[ki]
@@ -135,23 +157,29 @@ __device__ __forceinline__ void sorted_walk(const Params &p, const Ray &r,
                       alive && bound_test(p.topb, C, ci, r,
                                           fminf(h.t, t_cap))))
         continue;
-      const int g1 = p.topr[C + ci];
-      for (int g = p.topr[ci]; g < g1; ++g) {
-        if (!__any_sync(FULL_MASK,
-                        alive && bound_test(p.grpb, G, g, r,
-                                            fminf(h.t, t_cap))))
-          continue;
-        for (int k = 0; k < GROUP_SUBS; ++k) {
-          const int li = g * GROUP_SUBS + k;
-          if (!__any_sync(FULL_MASK,
-                          alive && bound_test(p.subb, p.n_subs, li, r,
-                                              fminf(h.t, t_cap))))
-            continue;
-          const int base = li * SUB, n = p.subn[li];
-          for (int ti = 0; ti < n; ++ti)
-            tri_step<false, false>(p.tri, n_cols, base + ti, r, h, 0.0f);
-        }
+      // the top's passing sub-leaves: a top spans at most 8 groups, 32 bits
+      // (the host side checks the ranges)
+      const int g0 = p.topr[ci], g1 = p.topr[C + ci];
+      const int s0 = g0 * GROUP_SUBS;
+      unsigned mask = 0u;
+      for (int g = g0; g < g1; ++g) {
+        if (!group_ok(g)) continue;
+        for (int k = 0; k < GROUP_SUBS; ++k)
+          if (sub_ok(g * GROUP_SUBS + k))
+            mask |= 1u << ((g - g0) * GROUP_SUBS + k);
       }
+      staged_sub_walk(
+          mask, GROUP_SUBS, tiles, [&](int q) { return group_ok(g0 + q); },
+          [&](int s) { return sub_ok(s0 + s); },
+          [&](int s, float *tile) {
+            stage_sub_leaf(tile, p.tri, n_cols, (s0 + s) * SUB, lane);
+          },
+          [&](int s, const float *tile) {
+            const int li = s0 + s, n = p.subn[li];
+            for (int j = 0; j < n; ++j)
+              tri_step_staged<false, false>(tile, j, p.tri, n_cols,
+                                            li * SUB + j, r, h, 0.0f);
+          });
     }
   }
 }
@@ -159,6 +187,7 @@ __device__ __forceinline__ void sorted_walk(const Params &p, const Ray &r,
 template <bool PRIMARY>
 __global__ void __launch_bounds__(THREADS)
     sorted_bounce_kernel(const Params p) {
+  __shared__ __align__(16) float tiles[THREADS / WARP][2 * STAGE_FLOATS];
   const int i = blockIdx.x * THREADS + threadIdx.x;
   if ((i & ~(WARP - 1)) >= p.n) return;  // n is whole warps: warp-uniform
   const size_t n = (size_t)p.n;
@@ -216,7 +245,8 @@ __global__ void __launch_bounds__(THREADS)
   int ref_i = 0;
   float dmax = 0.0f;
   if (use_node) nearest_ref(p.refp, p.n_refs, r, alive, alive_f, ref_i, dmax);
-  sorted_walk<PRIMARY>(p, r, alive, t_cap, use_node, ref_i, dmax, h);
+  sorted_walk<PRIMARY>(p, r, alive, t_cap, use_node, ref_i, dmax, h,
+                       tiles[threadIdx.x / WARP], threadIdx.x & (WARP - 1));
   resolve_tri_normals(h);
   const bool cont = shade(pix_u, s, p.bounce, r, h, alive, c);
 
@@ -251,7 +281,9 @@ __global__ void __launch_bounds__(THREADS)
 
 }  // namespace
 
-// Launch one K6 bounce over n ray slots (whole warps) on `stream`.  Tables
+// Launch one K6 bounce over n ray slots (whole warps) on `stream`: on the
+// primary bounce every slot of the frame (n >= side^2 * spp), after it the
+// live prefix of the sorted state (any whole warps).  Tables
 // are the row-major device arrays of ops/cuda/wavefront_sorted.py's
 // SortedTables: sph (11, n_sph), sphere clusters (may be null, n_sphc 0),
 // tri (24, n_subs * 32), sub bounds (4, n_subs), sub counts (n_subs), group
@@ -277,7 +309,7 @@ extern "C" int rt_sorted_bounce(
       n_sph < 1 || n_subs < 1 || n_subs % GROUP_SUBS || n_tops < 1 ||
       n_refs < 1 || side < 2 || (side & (side - 1)) || side > 32768 ||
       side < width || side < height ||
-      (long long)side * side * spp > (long long)n ||
+      (primary && (long long)side * side * spp > (long long)n) ||
       (!primary && state_in == nullptr))
     return (int)cudaErrorInvalidValue;
   Params p;

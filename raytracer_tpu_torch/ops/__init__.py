@@ -233,11 +233,12 @@ def scene_sorted_tables(scene: Scene, device):
 def scene_stream_tables(scene: Scene, device):
     """K4's tables on ``device``, cached on the scene's identity: (sph,
     sph_clusters, tri, leaf_bounds, leaf_counts, top_bounds, top_ranges,
-    root)."""
+    root, sub_bounds)."""
     dev = _to(device)
     return _cached(scene, ("stream", str(torch.device(device))), lambda h: (
         *_spheres(h, dev),
-        *(dev(t) for t in stream.build_tri_stream_tables(h))))
+        *(dev(t) for t in stream.build_tri_stream_tables(h,
+                                                         sub_bounds=True))))
 
 
 def _camera_order(top_bounds, camera: Camera, device):
@@ -364,14 +365,15 @@ def _render_binned(scene: Scene, camera: Camera, *, width, height,
 
 def _stream_call(scene, camera, device, plain):
     """(K4 or its plain version, its tables + camera vector, keywords)."""
-    (sph, sph_cl, tri, leafb, leafn, topb, topr,
-     root) = scene_stream_tables(scene, device)
+    (sph, sph_cl, tri, leafb, leafn, topb, topr, root,
+     subb) = scene_stream_tables(scene, device)
     order, keys = _camera_order(topb, camera, device)
     fn = (stream.render_linear_stream_ref if plain
           else stream.render_linear_stream_cuda)
     return fn, (sph, tri, leafb, leafn, topb, topr, root,
                 tables.camera_vec(camera).to(device)), dict(
-        sph_clusters=sph_cl, top_order=order, top_keys=keys)
+        sph_clusters=sph_cl, top_order=order, top_keys=keys,
+        sub_bounds=subb)
 
 
 def render_linear_fast(scene: Scene, camera: Camera, *, width: int,

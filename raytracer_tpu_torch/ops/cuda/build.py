@@ -49,13 +49,13 @@ def nvcc_path() -> str:
                        "or set CUDA_HOME to build the CUDA kernels")
 
 
-def sources() -> list[Path]:
-    return sorted(CSRC_DIR.glob("*.cu"))
+def sources(csrc=CSRC_DIR) -> list[Path]:
+    return sorted(Path(csrc).glob("*.cu"))
 
 
-def source_hash() -> str:
+def source_hash(csrc=CSRC_DIR) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC_DIR.glob("*.cu*")):
+    for src in sorted(Path(csrc).glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -75,21 +75,22 @@ def _run_all(cmds: list[list[str]]) -> list[str]:
     return [err for _, err in outs]
 
 
-def build() -> Path:
-    """Compile the sources unless this exact build exists; return the
+def build(csrc=CSRC_DIR) -> Path:
+    """Compile the sources in ``csrc`` (the package's own unless a study
+    build names another) unless this exact build exists; return the
     library's path.  Writes to a temporary directory and renames the
     library into place, so concurrent builds never load a half-written
     one."""
-    out_dir = BUILD_ROOT / source_hash()
+    out_dir = BUILD_ROOT / source_hash(csrc)
     lib = out_dir / LIB_NAME
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
-        objs = [Path(tmp) / (src.stem + ".o") for src in sources()]
+        objs = [Path(tmp) / (src.stem + ".o") for src in sources(csrc)]
         logs = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
-                         for src, obj in zip(sources(), objs)])
+                         for src, obj in zip(sources(csrc), objs)])
         tmp_lib = Path(tmp) / LIB_NAME
         _run_all([[nvcc, "-shared", "-o", str(tmp_lib), *map(str, objs)]])
         (out_dir / "ptxas.log").write_text("".join(logs))
@@ -98,10 +99,10 @@ def build() -> Path:
 
 
 @functools.cache
-def load() -> ctypes.CDLL:
+def load(csrc=CSRC_DIR) -> ctypes.CDLL:
     """Build if needed, load the library once per process and declare
     every entry point's C signature."""
-    lib = ctypes.CDLL(str(build()))
+    lib = ctypes.CDLL(str(build(csrc)))
     p, i, u, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
                   ctypes.c_float)
     fn = lib.rt_wavefront_render
@@ -122,11 +123,14 @@ def load() -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     fn = lib.rt_stream_render
     fn.argtypes = [p, i, p, p, i,        # sph, n_sph, sphere clusters
-                   p, p, p, i,           # tri, leaf bounds / counts, n_leaves
+                   p, p, p, p, i,        # tri, leaf bounds / counts, sub
+                                         # bounds, n_leaves
                    p, p, p, p, i,        # top bounds / ranges / order / keys
-                   p, p, p, p,           # root, cam, mean, segs
+                   p, p, p, p, p,        # root, cam, mean, segs, counter
                    i, i, u, i, i, i,     # width .. shard_rows
-                   i, i, f, p]           # spp, depth, inv_spp, stream
+                   i, i, f,              # spp, depth, inv_spp
+                   i, i, i, i, i, i,     # thread layout: run .. blocks
+                   p]                    # stream
     fn.restype = ctypes.c_int
     fn = lib.rt_binned_pass
     fn.argtypes = [p, i, p, p, i,        # sph, n_sph, sphere clusters

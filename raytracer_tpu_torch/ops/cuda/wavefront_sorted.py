@@ -1,23 +1,26 @@
 """K6, the sorted per-bounce mesh engine: host side, CUDA wrapper, plain
 version and the driver.
 
-``render_linear_sorted`` renders a frame one bounce per launch over
-side^2 * spp ray slots, side being the power of two at or above the
-frame's longer edge: the primary rays go out in Morton pixel order, so a
-warp's rays are a square image tile.  Every bounce intersects (spheres,
-then a front-to-back walk over runs of 8 top nodes -> tops -> 128-column
-groups -> 32-triangle sub-leaves of the sorted tables, culled by their
-bounding spheres), shades, and writes each ray's next sort key
+``render_linear_sorted`` renders a frame one bounce per launch, the
+primary bounce over side^2 * spp ray slots, side being the power of two at
+or above the frame's longer edge: the primary rays go out in Morton pixel
+order, so a warp's rays are a square image tile.  Every bounce intersects
+(spheres, then a front-to-back walk over runs of 8 top nodes -> tops ->
+128-column groups -> 32-triangle sub-leaves of the sorted tables, culled
+by their bounding spheres), shades, and writes each ray's next sort key
 [coarse origin cell | 6-bit direction class | fine origin cell]
 (``sort_keys``; dead rays 0x7FFFFFFF).  Between bounces the rays are
 reordered by key (``wavefront_binned.regroup``: a stable ``torch.sort``
 and one gather of the state), so each warp of the next bounce holds rays
-that share a neighbourhood and a direction cone.  A ray's index rides
-state plane 13 as int32 bits and never passes through a float, so frames
-past 2^24 rays keep exact pixel and sample ids.  The image is assembled
-without atomics: every ray goes back to its index, and a pixel's samples
-are summed in sample order and scaled by f32(1/spp), as K1 and K4 do, so
-the frame equals theirs bit for bit wherever the hits agree.  Segments
+that share a neighbourhood and a direction cone.  Dead rays sort last and
+stay dead, so each later bounce launches over the live prefix only, and
+the next regroup sorts and gathers only that prefix (``_trace_sorted``).
+A ray's index rides state plane 13 as int32 bits and never passes through
+a float, so frames past 2^24 rays keep exact pixel and sample ids.  The
+image is assembled without atomics: every ray goes back to its index, and
+a pixel's samples are summed in sample order and scaled by f32(1/spp), as
+K1 and K4 do, so the frame equals theirs bit for bit wherever the hits
+agree.  Segments
 are counted in int64.
 
 ``sorted_bounce_cuda`` launches the hand-written CUDA kernel in
@@ -220,12 +223,14 @@ def _check_tables(T: SortedTables, cam_vec, state):
         chk(state, "state", _F32, (P_STATE, n), dev)
 
 
-def _check_rays(n, width, height, spp, side):
+def _check_rays(n, width, height, spp, side, primary):
+    """A bounce's slots: whole warps; on the primary bounce every slot of
+    the frame, after it any live prefix."""
     if n < WARP or n % WARP or n > MAX_RAYS:
         raise ValueError(f"{n} ray slots are not whole warps below "
                          f"{MAX_RAYS}")
     if side & (side - 1) or side < max(width, height) \
-            or n < side * side * spp:
+            or (primary and n < side * side * spp):
         raise ValueError(f"{n} slots and side {side} do not hold a "
                          f"{width}x{height} frame at {spp} spp")
 
@@ -250,7 +255,7 @@ def sorted_bounce_cuda(T: SortedTables, cam_vec, state, *, n_rays, bounce,
         raise ValueError(f"K6 runs on CUDA tensors, got {T.sph.device}")
     _check_tables(T, cam_vec, None if primary else state)
     n = n_rays if primary else state.shape[1]
-    _check_rays(n, width, height, spp, side)
+    _check_rays(n, width, height, spp, side, primary)
     from . import build
     lib = build.load()
     dev = T.sph.device
@@ -292,7 +297,7 @@ def sorted_bounce_ref(T: SortedTables, cam_vec, state, *, n_rays, bounce,
     _check_tables(T, cam_vec, None if primary else state)
     dev = T.sph.device
     n = n_rays if primary else state.shape[1]
-    _check_rays(n, width, height, spp, side)
+    _check_rays(n, width, height, spp, side, primary)
     if primary:
         ridx = torch.arange(n, dtype=_I32, device=dev)
     else:
@@ -348,6 +353,9 @@ def _sorted_tables(sph, tri, sub_bounds, sub_counts, grp_bounds, top_bounds,
                               device=dev)
     binned._check_index_ranges(sph, sph_clusters, sub_counts, top_ranges,
                                grp_bounds.shape[1], top_order, node_orders)
+    # K6 stages a top's sub-leaves through a 32-bit mask
+    if int((top_ranges[1] - top_ranges[0]).max()) > tables.TOP_GROUPS:
+        raise ValueError(f"a top spans more than {tables.TOP_GROUPS} groups")
     return SortedTables(sph, sph_clusters, tri, sub_bounds, sub_counts,
                         grp_bounds, top_bounds, top_ranges, top_order,
                         top_keys, binned.run_bounds(top_bounds, top_order),
@@ -355,16 +363,19 @@ def _sorted_tables(sph, tri, sub_bounds, sub_counts, grp_bounds, top_bounds,
                         root, key_lo, key_hi)
 
 
-def assemble_image(state, *, width, height, spp, side):
-    """The mean image [H, W, 3] of a finished state: every ray's radiance
-    back at its index, each Morton pixel's samples summed in sample order
-    from 0 and scaled by f32(1/spp) (K1's and K4's arithmetic), the pixels
-    put in raster order.  No atomics: each target is written once."""
-    dev = state.device
+def assemble_image(chunks, *, width, height, spp, side):
+    """The mean image [H, W, 3] of a finished frame, its rays' states in
+    ``chunks`` (P_STATE, k) that together hold every slot once: every ray's
+    radiance back at its index, each Morton pixel's samples summed in
+    sample order from 0 and scaled by f32(1/spp) (K1's and K4's
+    arithmetic), the pixels put in raster order.  No atomics: each target
+    is written once."""
+    dev = chunks[0].device
     npix = side * side
-    rgb = torch.empty((3, state.shape[1]), dtype=_F32, device=dev)
-    rgb.index_copy_(1, state[ST_RIDX].view(_I32).long(),
-                    state[ST_RR:ST_RB + 1])
+    rgb = torch.empty((3, sum(c.shape[1] for c in chunks)), dtype=_F32,
+                      device=dev)
+    for c in chunks:
+        rgb.index_copy_(1, c[ST_RIDX].view(_I32).long(), c[ST_RR:ST_RB + 1])
     per = rgb[:, :npix * spp].reshape(3, npix, spp).permute(2, 0, 1) \
         .contiguous()
     acc = torch.zeros((3, npix), dtype=_F32, device=dev)
@@ -377,6 +388,46 @@ def assemble_image(state, *, width, height, spp, side):
     img = torch.empty((height * width, 3), dtype=_F32, device=dev)
     img[(row * width + col)[inside].long()] = mean[:, inside].t()
     return img.reshape(height, width, 3)
+
+
+def _trace_sorted(run, T, cam_vec, geo, depth, *, full_n=False, slots=None):
+    """The bounces of one frame: (the final states as chunks that together
+    hold every slot once, segments traced after the primary bounce).
+
+    After each bounce the rays are regrouped by their keys, dead rays last.
+    A dead ray stays dead, so a bounce launches only over the live prefix,
+    in whole warps; the dead slots after it are split off and kept as they
+    are for the image assembly, and the next regroup sorts and gathers only
+    the prefix.  A stable sort of the prefix puts every ray where the stable
+    sort of all slots would (the tail is dead and already in order), so the
+    frame is bitwise the full-slot loop's.  One device sync a bounce
+    reads the live count; a bounce with no live ray launches nothing.
+
+    Test-only: ``full_n=True`` launches and sorts every slot each bounce
+    (the reference the tests hold the live prefix to); ``slots(ids)`` is
+    called after each regroup with the int32 ray ids of all slots in the
+    full-slot loop's order."""
+    state, keys = run(T, cam_vec, None, bounce=0, primary=True,
+                      is_last=depth == 1, **geo)
+    tails, traced = [], 0
+    for b in range(1, depth):
+        live = int((keys != KEY_DEAD).sum())
+        traced += live
+        if full_n:
+            state, _ = binned.regroup(state, keys)
+        elif live == 0:
+            break
+        else:
+            state, tail = binned.regroup(state, keys,
+                                         -(-live // WARP) * WARP)
+            if tail is not None:
+                tails.insert(0, tail)
+        if slots is not None:
+            slots(torch.cat([c[ST_RIDX] for c in [state] + tails]).view(
+                _I32))
+        state, keys = run(T, cam_vec, state, bounce=b, primary=False,
+                          is_last=b == depth - 1, **geo)
+    return [state] + tails, traced
 
 
 def render_linear_sorted(sph, tri, sub_bounds, sub_counts, grp_bounds,
@@ -394,7 +445,24 @@ def render_linear_sorted(sph, tri, sub_bounds, sub_counts, grp_bounds,
     drive the primary bounce's early exit, the node orders and keys the
     later bounces' (``node_exit``).  Any spp; depth 0 gives a black frame
     and 0 segments.  ``plain=True`` runs every bounce through
-    ``sorted_bounce_ref``."""
+    ``sorted_bounce_ref``.  Bounces after the primary launch over the live
+    prefix only (``_trace_sorted``)."""
+    return _render_sorted(
+        sph, tri, sub_bounds, sub_counts, grp_bounds, top_bounds, top_ranges,
+        root, ref_pts, node_orders, node_keys, node_run_bounds, key_lo,
+        key_hi, cam_vec, width=width, height=height,
+        samples_per_pixel=samples_per_pixel, depth=depth, seed=seed,
+        sph_clusters=sph_clusters, top_order=top_order, top_keys=top_keys,
+        node_exit=node_exit, plain=plain)
+
+
+def _render_sorted(sph, tri, sub_bounds, sub_counts, grp_bounds, top_bounds,
+                   top_ranges, root, ref_pts, node_orders, node_keys,
+                   node_run_bounds, key_lo, key_hi, cam_vec, *, width, height,
+                   samples_per_pixel, depth, seed, sph_clusters, top_order,
+                   top_keys, node_exit, plain, full_n=False, slots=None):
+    """``render_linear_sorted``'s body; ``full_n`` and ``slots`` are
+    ``_trace_sorted``'s test-only arguments."""
     spp = samples_per_pixel
     side, n = ray_layout(width, height, spp)
     if depth < 0:
@@ -411,15 +479,9 @@ def render_linear_sorted(sph, tri, sub_bounds, sub_counts, grp_bounds,
     run = sorted_bounce_ref if plain else sorted_bounce_cuda
     geo = dict(n_rays=n, node_exit=node_exit, width=width, height=height,
                spp=spp, side=side, seed_word=rng.seed_word(seed))
-    state, keys = run(T, cam_vec, None, bounce=0, primary=True,
-                      is_last=depth == 1, **geo)
-    # bounce 0 traces exactly the in-image rays
-    traced = torch.zeros((), dtype=torch.int64, device=dev)
-    for b in range(1, depth):
-        traced = traced + (state[ST_ALIVE] > 0.5).sum()
-        state, _ = binned.regroup(state, keys)
-        state, keys = run(T, cam_vec, state, bounce=b, primary=False,
-                          is_last=b == depth - 1, **geo)
-    mean = assemble_image(state, width=width, height=height, spp=spp,
+    chunks, traced = _trace_sorted(run, T, cam_vec, geo, depth,
+                                   full_n=full_n, slots=slots)
+    mean = assemble_image(chunks, width=width, height=height, spp=spp,
                           side=side)
-    return mean, width * height * spp + int(traced)
+    # bounce 0 traces exactly the in-image rays
+    return mean, width * height * spp + traced

@@ -307,6 +307,62 @@ def test_k4_matches_plain_version(dev, name):
     assert torch.equal(band, km[9:17])
 
 
+@pytest.mark.parametrize("spp", [1, 3, 17])
+def test_k4_bitwise_plain_version_at_depth_8(dev, spp):
+    """K4's (pixel, sample) threads and sample-order sum: bitwise the plain
+    version at a spp below, off and above the 16-sample run."""
+    from raytracer_tpu_torch.ops.cuda import wavefront_stream as ws
+    scene, cam = _mesh("obj_mesh_scene")
+    _, args, kw = ops._stream_call(scene, cam, dev, plain=False)
+    shape = dict(width=40, height=24, samples_per_pixel=spp, depth=8, seed=2)
+    km, ks = ws.render_linear_stream_cuda(*args, **shape, **kw)
+    pm, ps = ws.render_linear_stream_ref(*args, **shape, **kw)
+    assert torch.equal(km, pm) and ks == ps
+
+
+def test_k4_sixteen_bands_bitwise_the_whole_frame(dev):
+    """16 row bands of a 64x37 frame (5 of 3 rows, 11 of 2), then the
+    CLI's banding (13 bands of 3, a ragged last one): the bands' rows are
+    bitwise one launch's, segments add up."""
+    from raytracer_tpu_torch.ops.cuda import wavefront_stream as ws
+    scene, cam = _mesh("mesh_scene3")
+    _, args, kw = ops._stream_call(scene, cam, dev, plain=False)
+    shape = dict(width=64, height=37, samples_per_pixel=4, depth=4, seed=1)
+    whole, segs = ws.render_linear_stream_cuda(*args, **shape, **kw)
+    sixteen = [3] * 5 + [2] * 11
+    cli = [3] * 13
+    for sizes in (sixteen, cli):
+        rows, total, r0 = [], 0, 0
+        for n in sizes:
+            part, s = ws.render_linear_stream_cuda(
+                *args, **shape, **kw, shard_rows=n, row_offset=r0)
+            rows.append(part[:min(n, 37 - r0)])
+            total += s
+            r0 += n
+        assert torch.equal(torch.cat(rows), whole) and total == segs
+
+
+def test_k6_live_prefix_bitwise_the_full_slot_frame(dev):
+    """The live-prefix K6 frame against the bounce loop that launches
+    and sorts every slot each bounce (the test-only ``full_n``)."""
+    from raytracer_tpu_torch.ops.cuda import wavefront_sorted as wso
+    scene, cam = _mesh("obj_mesh_scene")
+    (sph, scl, *t) = ops.scene_sorted_tables(scene, dev)
+    order, keys = ops._camera_order(t[4], cam, dev)
+    args = (sph, *t[:13], tables.camera_vec(cam).to(dev))
+    kw = dict(width=64, height=36, samples_per_pixel=8, depth=4, seed=3,
+              sph_clusters=scl, top_order=order, top_keys=keys,
+              node_exit=True, plain=False)
+    ids = {True: [], False: []}
+    frames = {full: wso._render_sorted(
+        *args, **kw, full_n=full, slots=lambda i, f=full: ids[f].append(i))
+        for full in (True, False)}
+    assert torch.equal(frames[True][0], frames[False][0])
+    assert frames[True][1] == frames[False][1]
+    assert all(torch.equal(a, b) for a, b in zip(ids[True], ids[False]))
+    assert len(ids[False]) == 3
+
+
 @pytest.mark.parametrize("name", ["mesh_scene2", "mesh_scene3",
                                   "obj_mesh_scene"])
 def test_k3_matches_plain_version(dev, name):

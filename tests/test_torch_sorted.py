@@ -212,30 +212,94 @@ def test_wrapper_on_cpu_tensors_runs_plain_version(mesh2):
     assert torch.equal(got, frames[2][0]) and segs == frames[2][1]
 
 
-def test_ray_ids_survive_the_sorts_as_int32_bits():
-    """After each bounce and sort, plane 13 holds every ray index once."""
-    scene, cam = rtt.models.mesh_scene(2)
+def _prefix(scene, cam, **kw):
+    """The plain frame through ``render_linear_sorted``'s body
+    (``_render_sorted``), taking its test-only arguments."""
     args, extra = _port_args(scene, cam)
+    return wso._render_sorted(*args[:14], args[-1], plain=True,
+                              sph_clusters=None, node_exit=True, **extra,
+                              **{"seed": 0, **kw})
+
+
+def _full_n(scene, cam, **kw):
+    """The reference: the bounce loop launching and sorting every slot each
+    bounce (``full_n``)."""
+    return _prefix(scene, cam, full_n=True, **kw)
+
+
+def test_ray_ids_survive_the_sorts_as_int32_bits():
+    """After each sort, plane 13 of the live prefix and the dead tails
+    holds every ray index once."""
+    scene, cam = rtt.models.mesh_scene(2)
     seen = []
-    real = wso.sorted_bounce_ref
-
-    def spy(T, cv, state, **kw):
-        out = real(T, cv, state, **kw)
-        seen.append(out[0][wso.ST_RIDX].view(torch.int32).clone())
-        return out
-
-    wso.sorted_bounce_ref = spy
-    try:
-        wso.render_linear_sorted(*args, **extra, width=20, height=12,
-                                 samples_per_pixel=3, depth=3, plain=True)
-    finally:
-        wso.sorted_bounce_ref = real
-    assert len(seen) == 3
-    n = seen[0].shape[0]
+    _prefix(scene, cam, slots=lambda ids: seen.append(ids.clone()),
+            width=20, height=12, samples_per_pixel=3, depth=3)
+    assert len(seen) == 2
+    n = wso.ray_layout(20, 12, 3)[1]
     for ids in seen:
         assert torch.equal(ids.sort().values, torch.arange(n,
                                                            dtype=torch.int32))
+    assert not torch.equal(seen[0], torch.arange(n, dtype=torch.int32))
     assert not torch.equal(seen[1], seen[0])      # the sort moved rays
+
+
+@pytest.mark.parametrize("spp", [2, 3])
+def test_live_prefix_is_bitwise_the_full_slot_loop(mesh2, spp):
+    """The live-prefix frame and its slot order after every regroup equal
+    the full-slot loop's, ray id for ray id; later bounces launch over
+    fewer slots."""
+    scene, cam, frames = mesh2
+    kw = dict(MESH2, samples_per_pixel=spp)
+    want_ids, got_ids, slots_run = [], [], []
+    want = _full_n(scene, cam, slots=lambda i: want_ids.append(i.clone()),
+                   **kw)
+    real = wso.sorted_bounce_ref
+
+    def spy(T, cv, state, **k):
+        slots_run.append(k["n_rays"] if state is None else state.shape[1])
+        return real(T, cv, state, **k)
+
+    wso.sorted_bounce_ref = spy
+    try:
+        got = _prefix(scene, cam, slots=lambda i: got_ids.append(i.clone()),
+                      **kw)
+    finally:
+        wso.sorted_bounce_ref = real
+    assert torch.equal(got[0], want[0]) and got[1] == want[1]
+    assert torch.equal(got[0], frames[spp][0]) and got[1] == frames[spp][1]
+    assert len(got_ids) == len(want_ids) == MESH2["depth"] - 1
+    for a, b in zip(got_ids, want_ids):
+        assert torch.equal(a, b)
+    n = wso.ray_layout(48, 32, spp)[1]
+    assert slots_run[0] == n and all(k % 32 == 0 for k in slots_run)
+    assert slots_run[1] < n and slots_run == sorted(slots_run, reverse=True)
+
+
+def test_rays_that_all_die_on_the_primary_bounce():
+    """A camera looking up, away from the mesh and the ground: every ray
+    misses on bounce 0,
+    the later bounces launch nothing, and the frame (the sky) is the
+    full-slot loop's."""
+    scene, _ = rtt.models.mesh_scene(2)
+    cam = rtt.Camera.new_look_at((0.0, 0.0, 0.0), (0.0, 1.0, 0.2),
+                                 (0.0, 1.0, 0.0), 1.0, 1.5)
+    kw = dict(width=24, height=16, samples_per_pixel=2, depth=4)
+    calls = []
+    real = wso.sorted_bounce_ref
+
+    def spy(*a, **k):
+        calls.append(k["bounce"])
+        return real(*a, **k)
+
+    wso.sorted_bounce_ref = spy
+    try:
+        got = _prefix(scene, cam, **kw)
+    finally:
+        wso.sorted_bounce_ref = real
+    want = _full_n(scene, cam, **kw)
+    assert calls == [0]
+    assert torch.equal(got[0], want[0]) and got[1] == want[1] == 24 * 16 * 2
+    assert got[0].min() > 0.0
 
 
 @pytest.mark.parametrize("bad", ["order", "sub_counts", "dtype", "spp",

@@ -126,11 +126,20 @@ def test_cuda_wrapper_on_cpu_tensors_runs_plain_version(mesh2):
 
 
 @pytest.mark.parametrize("bad", ["rows", "leaves", "order", "counts",
-                                 "dtype", "shape"])
+                                 "dtype", "shape", "sub_bounds", "fanout"])
 def test_bad_inputs_raise(mesh2, bad):
     _, _, args, order = mesh2
     args, kw = list(args), dict(KW, **order)
-    if bad == "rows":
+    if bad == "sub_bounds":
+        kw["sub_bounds"] = args[2].contiguous()     # one column a leaf
+    elif bad == "fanout":                           # a top of 9 leaves
+        scene, cam = rtt.models.obj_mesh_scene()
+        args = list(_port_args(scene, cam))
+        o, k = _orders(args[4], cam.origin)
+        kw.update(top_order=torch.from_numpy(o), top_keys=torch.from_numpy(k))
+        args[5] = args[5].clone()
+        args[5][1, 0] = args[5][0, 0] + ws.TOP_FANOUT + 1
+    elif bad == "rows":
         args[1] = args[1][:21].contiguous()
     elif bad == "leaves":
         args[2] = args[2][:, :2].contiguous()
@@ -144,6 +153,19 @@ def test_bad_inputs_raise(mesh2, bad):
         kw["samples_per_pixel"] = 0
     with pytest.raises((TypeError, ValueError)):
         ws.render_linear_stream_ref(*args, **kw)
+
+
+def test_range_check_runs_again_after_an_in_place_change(mesh2):
+    """The bands of a frame skip the index-range check of tables checked
+    last; an in-place change to them is checked again."""
+    _, _, args, order = mesh2
+    args = [a.clone() for a in args]
+    ws.render_linear_stream_ref(*args, **KW, **order, shard_rows=4)
+    ws.render_linear_stream_ref(*args, **KW, **order, shard_rows=4,
+                                row_offset=4)
+    args[3] += 200                                   # leaf counts, in place
+    with pytest.raises(ValueError):
+        ws.render_linear_stream_ref(*args, **KW, **order, shard_rows=4)
 
 
 def test_banded_binned_render_goes_to_the_streamed_engine(monkeypatch):
@@ -176,3 +198,91 @@ def test_stream_tables_cached():
     n = ops.pack_events
     t2 = ops.scene_stream_tables(scene, "cpu")
     assert ops.pack_events == n and t1[2] is t2[2]
+
+
+# ---------------------------------------------------------------------------
+# The redesigned kernel's host side: sub-leaf bounds, thread layout, sum
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", ["mesh2", "mesh3", "obj10k"])
+def test_sub_leaf_bounds(name):
+    """Each leaf's 32-column sub-leaves: every valid triangle's vertices
+    inside its sub-leaf's sphere (float32, the leaf bounds' slack), empty
+    sub-leaves marked empty, the sub-leaves' columns summing to the leaf
+    count; the JAX-equal tables unchanged by the extra output."""
+    scene = (rtt.models.obj_mesh_scene()[0] if name == "obj10k"
+             else rtt.models.mesh_scene(int(name[-1]))[0])
+    plain = ws.build_tri_stream_tables(scene)
+    *rest, subb = ws.build_tri_stream_tables(scene, sub_bounds=True)
+    for a, b in zip(plain, rest):
+        np.testing.assert_array_equal(a, b)
+    leaf_counts = plain[2][0]
+    assert subb.shape == (4, ws.SUBS * leaf_counts.shape[0])
+    assert subb.dtype == np.float32
+    h = scene.numpy()
+    v = [np.asarray(a, np.float64) for a in (h.tri_v0, h.tri_v1, h.tri_v2)]
+    verts = np.stack(v).astype(np.float32)
+    vidx = np.nonzero(np.asarray(h.tri_valid))[0]
+    cen = (v[0] + v[1] + v[2]) / 3.0       # the table build's split
+    perm, slices = tables._median_split_order(cen[vidx], ws.LEAF)
+    ids = vidx[perm]
+    assert sum(e - s for s, e in slices) == len(vidx)
+    for k, n in enumerate(leaf_counts):
+        cols = [min(max(n - j * ws.SUB, 0), ws.SUB) for j in range(ws.SUBS)]
+        assert sum(cols) == n
+        s0 = slices[k][0] if slices else 0
+        for j, c in enumerate(cols):
+            b = subb[:, k * ws.SUBS + j]
+            if c == 0:
+                assert b[3] < 0.0
+                continue
+            assert b[3] > 0.0
+            mem = ids[s0 + j * ws.SUB:s0 + j * ws.SUB + c]
+            d = verts[:, mem, :] - b[None, None, 0:3]
+            assert ((d * d).sum(-1) <= b[3]).all()
+
+
+@pytest.mark.parametrize("spp", [1, 3, 16, 17, 64])
+@pytest.mark.parametrize("width,rows", [(512, 18), (37, 18), (5, 3)])
+def test_thread_layout_covers_each_pixel_sample_once(spp, width, rows):
+    """K4's (pixel, sample) threads visit every sample of every pixel of a
+    band exactly once (a ragged CLI band: 18 rows; widths off the tile),
+    a warp's lanes of one pixel hold consecutive samples, and each chunk
+    holds run samples."""
+    lay = ws.thread_layout(width, rows, spp)
+    row, col, sample, live = ws.layout_samples(width, rows, spp)
+    assert lay.run * lay.tile_w * lay.tile_h == 32
+    assert lay.blocks * ws.WARPS_PER_BLOCK >= lay.n_tiles
+    hits = np.zeros((rows, width, spp), np.int64)
+    np.add.at(hits, (row[live], col[live], sample[live]), 1)
+    assert (hits == 1).all()
+    lanes = np.arange(32).reshape(32 // lay.run, lay.run)
+    for w in (0, lay.n_tiles - 1):
+        for c in range(lay.chunks):
+            for group in lanes:
+                assert len({(row[w, c, g], col[w, c, g]) for g in group}) == 1
+                assert (np.diff(sample[w, c, group]) == 1).all()
+
+
+def test_thread_layout_fills_a_cli_band():
+    lay = ws.thread_layout(512, 18, 16)
+    assert lay.run == 16 and (lay.tile_w, lay.tile_h) == (2, 1)
+    assert lay.n_tiles * 32 == 512 * 18 * 16 == 147456
+
+
+@pytest.mark.parametrize("spp", [1, 3, 16, 17, 64])
+def test_pixel_sum_is_k1_sample_order_sum(spp):
+    """The kernel's sample-order pixel sum over its lanes, bitwise K1's
+    plain acc = acc + c over samples 0 .. spp - 1."""
+    width, rows = 13, 7
+    r = np.random.default_rng(spp)
+    v = r.uniform(0.0, 3.0, (rows, width, spp)).astype(np.float32)
+    v[r.uniform(size=v.shape) < 0.2] = 0.0
+    row, col, sample, live = ws.layout_samples(width, rows, spp)
+    lanes = np.full(row.shape, np.nan, np.float32)   # dead lanes: never read
+    lanes[live] = v[row[live], col[live], sample[live]]
+    got = ws.pixel_sum_ref(torch.from_numpy(lanes), width, rows, spp)
+    want = torch.zeros((rows, width), dtype=torch.float32)
+    for s in range(spp):
+        want = want + torch.from_numpy(v[:, :, s])
+    assert torch.equal(got, want)
