@@ -16,7 +16,7 @@ if any phase fails:
 
   1. device: a CUDA GPU is required; prints its name and power limit;
   2. build: compiles csrc/*.cu with nvcc (first use) and prints the time
-     and ptxas's registers, stack and spills of K4 and both K6 instances;
+     and ptxas's registers, stack and spills of every kernel instance;
   3. K1 vs its plain version on the card, at 64x36, 4 spp, depth 8: the
      default world, the FFI world (triangles), the random sphere field with
      sphere clusters, the icosphere mesh with triangle clusters, and a
@@ -37,9 +37,10 @@ if any phase fails:
      <= 1e-5 except on at most 0.01% of the pixels (exact triangle ties),
      each reported; K4's bar is bitwise (max|diff| 0, differing pixels
      reported);
-  3d. K2 and K5s vs their plain versions at 64x36, 2 spp, depth 4,
-     correct sign: OBJ-10k in the 128-leaf topology (forced: 128 leaves,
-     8 tops) and the 164k scene under its own rule (2048 leaves, 128 tops).
+  3d. K2 and K5s (with their sub-leaf boxes) vs their plain versions at
+     64x36, 2 spp, depth 4, correct sign: OBJ-10k in the 128-leaf topology
+     (forced: 128 leaves, 8 tops) and the 164k scene under its own rule
+     (2048 leaves, 128 tops).
      Bars: K2 as in 3c; K5s winner ids equal lane for lane and dsph, dtri,
      dcam within 1e-5 * max|ref| + 1e-7; and K2 / K5s bitwise equal to
      K1 / K5 over the packed table and the same leaves (image, segments,
@@ -115,12 +116,15 @@ if any phase fails:
   5d. mesh gradient throughput: paths/s of both value-and-gradient passes
      (median of 5, host clock ending in a sync); K2 and K5s (164k) and K1
      and K5 (OBJ-10k) by CUDA events at the passes' own tables and image
-     cotangents, K2 and K5s held against their plain versions there, with
-     their times and bounds (top, leaf and triangle tests counted from the
-     plain version's rays); the winner reduction, the host glue and the
-     peak device memory of each pass; the walk crossover: the 164k pass
-     one-level in 64-triangle leaves against the two-level walk, OBJ-10k
-     one-level against the forced two-level walk;
+     cotangents, K2 and K5s held bitwise against K1 and K5 over the same
+     leaves there (image, segments, slab and winner ids, camera lanes) and
+     against their plain versions, with their times and bounds (top, leaf
+     and sub-leaf box and triangle tests counted from the plain version's
+     rays, and as counted before sub-leaves); the winner reduction, the
+     host glue and the peak device memory of each pass; the walk
+     crossover: the 164k pass one-level in 64-triangle leaves against the
+     two-level walk, OBJ-10k one-level against the forced two-level walk
+     (K2 and K5s held as at 164k);
   5e. sorted throughput: rays/s of (A) and (B) (median of 3) beside K1's
      on the same frames, each under torch.profiler once, K6's bounces,
      sorts + gathers (of the live prefix) and image assembly by CUDA
@@ -132,25 +136,35 @@ if any phase fails:
      there; K1-lowp vs K1 at the lowp study's frame with both times, the
      plain version's and PSNR against float32.
 
-The line before the last is a JSON object describing each kernel; the last
-line is ``{"ok": true, "device": {...}}``.
+After the phases a line sums K1's, K5's, K2's and K5s's device time over
+this run's main-path launches (launches x the time at their shapes; K1's
+16 CLI bands each replayed).  The line before the last is a JSON object
+describing each kernel; the last line is ``{"ok": true, "device":
+{...}}``.
 
-Old against new, in one call on one card (the redesigns of K4 and K6 are
+Old against new, in one call on one card (the kernel redesigns are
 measured so until the port has a benchmark): ``python3 chip_smoke.py
 --times TREE OUT.json`` times K4 and K6 on their main paths (K4 at the
 CLI's obj= frame, one launch and 16 bands, the same shape with OBJ-10k's
-own camera, and OBJ-10k 512x288; the (A)
-and (B) frames with their bounces, sorts + gathers, assembly, slots and a
-hash of each framebuffer) for the port in the checkout TREE, with its
-ptxas figures, using only entry points every version of the port has; run
-it on an older checkout (``git archive`` unpacked under ``build/``) and on
-this one in turns, then ``python3 chip_smoke.py --compare-times OUT...``
-prints them side by side and fails unless every run's frames are bitwise
-alike.
+own camera, and OBJ-10k 512x288; the (A) and (B) frames with their
+bounces, sorts + gathers, assembly, slots and a hash of each framebuffer),
+K1 at the headline frame, K5 at the default world's gradient pass, and
+the 164k gradient pass with its K2 and K5s (their calls in the pass
+recorded and replayed; hashes of K2's image and K5s's slab and camera
+lanes), for the port in the checkout TREE, with its ptxas figures, using
+only entry points every version of the port has; run it on an older
+checkout (``git archive`` unpacked under ``build/``) and on this one in
+turns, then ``python3 chip_smoke.py --compare-times OUT...`` prints them
+side by side and fails unless every run's outputs are bitwise alike.
+``python3 chip_smoke.py --parts OUT.json`` measures what each part of the
+K4, K6, K2 and K5s designs buys on this checkout (copies of csrc/ built
+with a part switched off: the staged tiles; without sub-leaf bounds;
+K6's live prefix; K5s's register cap).
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import statistics
 import subprocess
@@ -204,7 +218,7 @@ def import_port(root=ROOT):
 
 def phase_build() -> dict:
     """Build and load the kernels; print ptxas's registers, stack and
-    spills of K4 and both K6 instances from the build's ptxas.log."""
+    spills of every kernel instance from the build's ptxas.log."""
     from raytracer_tpu_torch.ops.cuda import build
     t0 = time.perf_counter()
     lib = build.load()
@@ -213,15 +227,28 @@ def phase_build() -> dict:
     return ptxas_report(Path(lib._name).parent / "ptxas.log")
 
 
-# the kernels whose ptxas figures every run prints: mangled-name fragment
-PTXAS_KERNELS = {"K4": "stream_kernel",
+# the kernel instances whose ptxas figures every run prints: a fragment of
+# each mangled name (template flags PARITY, LOWP; a name's length prefix
+# keeps the fragments apart)
+PTXAS_KERNELS = {"K1": "wavefront_kernelILb0ELb0E",
+                 "K1 parity sign": "wavefront_kernelILb1ELb0E",
+                 "K1-lowp": "wavefront_kernelILb1ELb1E",
+                 "K1-lowp correct sign": "wavefront_kernelILb0ELb1E",
+                 "K2": "16two_level_kernel",
+                 "K3": "binned_pass_kernel",
+                 "K4": "13stream_kernel",
+                 "K5": "wavefront_grad_kernelILb0E",
+                 "K5 parity sign": "wavefront_grad_kernelILb1E",
+                 "K5s": "21two_level_grad_kernel",
                  "K6 primary": "sorted_bounce_kernelILb1E",
                  "K6 later bounces": "sorted_bounce_kernelILb0E"}
 
 
-def ptxas_report(path) -> dict:
+def ptxas_report(path, required=True) -> dict:
     """{kernel: (registers, stack bytes, spill store bytes)} from a
-    ``-Xptxas -v`` log, printed."""
+    ``-Xptxas -v`` log, printed; with ``required`` every instance of
+    PTXAS_KERNELS must be there (an older checkout's build may lack some:
+    K2 and K5s were once launches of K1's and K5's kernels)."""
     import re
     lines = Path(path).read_text().splitlines() if Path(path).exists() \
         else []
@@ -239,7 +266,7 @@ def ptxas_report(path) -> dict:
     log("  ptxas: " + "; ".join(
         f"{k} {r} registers, {st} B stack, {sp} B spilled"
         for k, (r, st, sp) in out.items()))
-    if len(out) != len(PTXAS_KERNELS):
+    if required and len(out) != len(PTXAS_KERNELS):
         raise SystemExit(f"ptxas.log lacks {set(PTXAS_KERNELS) - set(out)}")
     return out
 
@@ -316,9 +343,10 @@ def phase_main_path(rtt) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         out = str(Path(tmp) / "image.ppm")
         wfc.LAUNCHES = wb.LAUNCHES = 0
-        t0 = time.perf_counter()
-        rc = cli.main(args + [f"out={out}"])
-        dt = time.perf_counter() - t0
+        with _Recorder(wfc, "render_linear_cuda") as bands:
+            t0 = time.perf_counter()
+            rc = cli.main(args + [f"out={out}"])
+            dt = time.perf_counter() - t0
         launches, k5_launches = wfc.LAUNCHES, wb.LAUNCHES
         fb = image.read_ppm(out)
     log(f"\nmain path: cli.main({args}) rc={rc} in {dt:.3f}s, K1 launches "
@@ -359,7 +387,11 @@ def phase_main_path(rtt) -> int:
         f"{int((ref != fb).any(-1).sum())} pixels differ")
     if lsb > 1:
         raise SystemExit(f"main path: framebuffer off by {lsb} LSB")
-    return launches
+    band_ms = bands.replay_ms(runs=5)
+    log(f"  K1 over the CLI's 16 bands (each band's call replayed, CUDA "
+        f"events): {sum(band_ms):.3f} ms, {min(band_ms):.3f} to "
+        f"{max(band_ms):.3f} ms a band")
+    return launches, sum(band_ms)
 
 
 def _median_seconds(fn, runs=5):
@@ -702,7 +734,7 @@ def phase_grad_throughput(rtt, smi: str) -> dict:
                       + FLOPS_ADJOINT), nbytes(sph, tri, g, cv, kslab, kcam))
     log(f"  K5 bound {b[0]:.4f} ms by {b[1]}")
     return dict(paths_per_s=paths / sec, ms=ms, plain_ms=plain_ms,
-                k1_err=k1_err, k5_err=err, bound=b)
+                k1_ms=k1_ms, k1_err=k1_err, k5_err=err, bound=b)
 
 
 # ---------------------------------------------------------------------------
@@ -889,25 +921,16 @@ def _pixel_walk_ops(records, levels, leaf_tris, width):
     return lane, warp
 
 
-def _k4_walk_ops(records, sargs, subb, width, rows, spp):
-    """K4's walk over one band: top, leaf and sub-leaf bounding spheres,
-    then a sub-leaf's triangles, summed over the recorded bounces of its
-    plain version (scatter_bookkeep calls: ray, closest hit, sample, bounce,
-    live lanes, row-major over the band).  The warps are K4's (pixel,
-    sample) warps (thread_layout): one warp's lanes at a bounce are its
-    pixels' samples of one run, so records of one run and bounce trace
+def _layout_walk_ops(records, levels, leaf_tris, width, rows, spp):
+    """_walk_ops summed over the recorded bounces of a (pixel, sample)
+    kernel's plain version (scatter_bookkeep calls: ray, closest hit,
+    sample, bounce, live lanes, row-major over the band), with the kernel's
+    warps (thread_layout: K4, K2, K5s): one warp's lanes at a bounce are
+    its pixels' samples of one run, so records of one run and bounce trace
     together."""
     from raytracer_tpu_torch.ops.cuda import wavefront_stream as ws
-    _, _, leafb, leafn, topb, topr, _, _ = sargs
-    dev = leafb.device
-    n_leaves = leafb.shape[1]
-    counts = leafn[0].repeat_interleave(ws.SUBS) - torch.arange(
-        ws.SUBS, device=dev).repeat(n_leaves) * ws.SUB
-    levels = [(_sphere_test(topb), None, FLOPS_BOUND),
-              (_sphere_test(leafb), _parents(topr, n_leaves), FLOPS_BOUND),
-              (_sphere_test(subb), torch.arange(
-                  n_leaves * ws.SUBS, device=dev) // ws.SUBS, FLOPS_BOUND)]
     lay = ws.thread_layout(width, rows, spp)
+    dev = leaf_tris.device
     idx = torch.arange(rows * width, device=dev)
     row, col = idx // width, idx % width
     pwarp = (row // lay.tile_h) * lay.tiles_x + col // lay.tile_w
@@ -923,10 +946,26 @@ def _k4_walk_ops(records, sargs, subb, width, rows, spp):
                          torch.cat([x[1] for x in recs]),
                          torch.cat([x[2] for x in recs]),
                          torch.cat([x[3] for x in recs]),
-                         lay.n_tiles * lay.chunks, levels,
-                         counts.clamp(0, ws.SUB))
+                         lay.n_tiles * lay.chunks, levels, leaf_tris)
         lane, warp = lane + r, warp + w
     return lane, warp
+
+
+def _k4_walk_ops(records, sargs, subb, width, rows, spp):
+    """K4's walk over one band: top, leaf and sub-leaf bounding spheres,
+    then a sub-leaf's triangles (_layout_walk_ops)."""
+    from raytracer_tpu_torch.ops.cuda import wavefront_stream as ws
+    _, _, leafb, leafn, topb, topr, _, _ = sargs
+    dev = leafb.device
+    n_leaves = leafb.shape[1]
+    counts = leafn[0].repeat_interleave(ws.SUBS) - torch.arange(
+        ws.SUBS, device=dev).repeat(n_leaves) * ws.SUB
+    levels = [(_sphere_test(topb), None, FLOPS_BOUND),
+              (_sphere_test(leafb), _parents(topr, n_leaves), FLOPS_BOUND),
+              (_sphere_test(subb), torch.arange(
+                  n_leaves * ws.SUBS, device=dev) // ws.SUBS, FLOPS_BOUND)]
+    return _layout_walk_ops(records, levels, counts.clamp(0, ws.SUB), width,
+                            rows, spp)
 
 
 def _k3_walk_ops(passes, hits):
@@ -1497,7 +1536,7 @@ def phase_stream_vs_plain(rtt, scenes) -> dict:
             f"{diff._needs_stream(scene)}")
         cv = tables.camera_vec(cam)
         kw = dict(STREAM_SMALL, tri_clusters=t["clusters"])
-        skw = dict(kw, tri_stream=t["tops"])
+        skw = dict(kw, tri_stream=t["tops"], sub_bounds=t["subs"])
         k2 = wfc.render_linear_cuda(t["sph"], t["aligned"], cv, **skw)
         p2_ms, p2 = _sync_ms(lambda: wfc.render_linear_ref(
             t["sph"], t["aligned"], cv, **skw))
@@ -1597,21 +1636,38 @@ def phase_mesh_grad(rtt, scenes) -> dict:
     return out
 
 
-def _k2_walk_ops(records, t, width):
-    """K2's walk: top boxes, the leaf boxes of a passing top, then a
-    passing leaf's packed count of triangles."""
+def _k2_levels(t, subs):
+    """K2's walk as _walk_ops levels, and the triangles of each node of the
+    last level: top boxes, the leaf boxes of a passing top, then (with
+    ``subs``, as K2 and K5s walk) the 32-column sub-leaf boxes of a passing
+    leaf and a passing sub-leaf's columns, or (without) a passing leaf's
+    packed count of columns.  Sub-leaves past a leaf's count are never
+    voted."""
     (leafb, leafr), (topb, topr) = t["clusters"], t["tops"]
+    n_leaves = leafb.shape[1]
+    counts = leafr[1] - leafr[0]
     levels = [(_box_test(topb), None, FLOPS_BOX),
-              (_box_test(leafb), _parents(topr, leafb.shape[1]), FLOPS_BOX)]
-    return _pixel_walk_ops(records, levels, leafr[1] - leafr[0], width)
+              (_box_test(leafb), _parents(topr, n_leaves), FLOPS_BOX)]
+    if not subs:
+        return levels, counts
+    dev = leafb.device
+    k = torch.arange(4, device=dev).repeat(n_leaves)
+    sub_n = (counts.repeat_interleave(4) - 32 * k).clamp(0, 32)
+    box = _box_test(t["subs"])
+    levels.append((lambda ray, cull: box(ray, cull) & (sub_n > 0),
+                   torch.arange(4 * n_leaves, device=dev) // 4, FLOPS_BOX))
+    return levels, sub_n
 
 
-def _stream_kernels(scene, cam, label, start, shape, target, plain=True):
+def _stream_kernels(scene, cam, label, start, shape, target):
     """The forward and backward kernels of ``label``'s pass alone, at the
     pass's own topology, tables and image cotangent: event times, the
-    reduction, the host glue (the tables the pass builds on each call), and
-    with ``plain`` on the two-level walk the plain versions, held against
-    the kernels, with the walk's operations."""
+    reduction and the host glue (the tables the pass builds on each call);
+    on the two-level walk K2 and K5s held bitwise against K1 and K5 over the
+    packed table and the same leaves (image, segments, slab with its winner
+    ids, camera lanes) and against their plain versions, with the plain
+    versions' times, the walk's operations (with sub-leaves, and as counted
+    before them) and the bounds."""
     from raytracer_tpu_torch import grad
     from raytracer_tpu_torch.ops import diff, tables
     from raytracer_tpu_torch.ops.cuda import wavefront as wfc
@@ -1622,13 +1678,13 @@ def _stream_kernels(scene, cam, label, start, shape, target, plain=True):
     glue_ms, t = _sync_ms(lambda: _stream_tables(s, cull, two))
     cv = tables.camera_vec(cam)
     S, T = t["sph"].shape[1], t["packed"].shape[1]
-    kw = dict(shape, seed=1, parity_plane_sign=False,
-              tri_clusters=t["clusters"])
+    one_kw = dict(shape, seed=1, parity_plane_sign=False,
+                  tri_clusters=t["clusters"])
     if two:
         fargs = (t["sph"], t["aligned"], cv)
-        kw = dict(kw, tri_stream=t["tops"])
+        kw = dict(one_kw, tri_stream=t["tops"], sub_bounds=t["subs"])
     else:
-        fargs = (t["sph"], t["packed"], cv)
+        fargs, kw = (t["sph"], t["packed"], cv), one_kw
     f_ms = _event_ms(lambda: wfc.render_linear_cuda(*fargs, **kw))
     img, kseg = wfc.render_linear_cuda(*fargs, **kw)
     g = (2.0 * (img - target) / img.numel()).contiguous()
@@ -1647,31 +1703,52 @@ def _stream_kernels(scene, cam, label, start, shape, target, plain=True):
     log(f"  {label}: {'K2' if two else 'K1'} {f_ms:.3f} ms, "
         f"{'K5s' if two else 'K5'} {b_ms:.3f} ms, winner reduction onto "
         f"{S + T} rows {red_ms:.3f} ms (CUDA events, median of 5); host "
-        f"glue (packers, leaf bounds{', tops, aligned table' if two else ''}"
-        f") {glue_ms:.3f} ms")
-    if not (two and plain):
+        f"glue (packers, leaf bounds"
+        f"{', tops, sub-leaf boxes, aligned table' if two else ''}) "
+        f"{glue_ms:.3f} ms")
+    if not two:
         return out
-    with _Recorder(wfc, "sphere_hits") as hits:
+    k1 = wfc.render_linear_cuda(t["sph"], t["packed"], cv, **one_kw)
+    k5 = wb.grad_slab_cuda(t["sph"], t["packed"], g, cv, **one_kw)
+    if not (torch.equal(k1[0], img) and k1[1] == kseg
+            and torch.equal(k5[0], slab) and torch.equal(k5[1], cam_l)):
+        raise SystemExit(f"{label}: K2 / K5s not bitwise K1 / K5 over the "
+                         f"same leaves")
+    del k1, k5
+    log(f"  {label}: K2 / K5s bitwise K1 / K5 over the same leaves (image, "
+        f"{kseg} segments, slab and winner ids, camera lanes)")
+    with _Recorder(wfc, "sphere_hits") as hits, \
+            _Recorder(wfc, "scatter_bookkeep") as shades:
         p2_ms, p2 = _sync_ms(lambda: wfc.render_linear_ref(*fargs, **kw))
     out["k2_err"] = compare_image(f"K2 vs plain at {label} {shape}",
                                   (img, kseg), p2)
-    walk, warp = _k2_walk_ops(hits.calls, t, shape["width"])
-    del hits
+    levels, leaf_tris = _k2_levels(t, subs=True)
+    walk, warp = _layout_walk_ops(shades.calls, levels, leaf_tris,
+                                  shape["width"], shape["height"],
+                                  shape["samples_per_pixel"])
+    levels, leaf_tris = _k2_levels(t, subs=False)
+    walk_old, warp_old = _pixel_walk_ops(hits.calls, levels, leaf_tris,
+                                         shape["width"])
+    del hits, shades
     p5_ms, p5 = _sync_ms(lambda: wb.grad_slab_ref(fargs[0], fargs[1], g, cv,
                                                   **gkw))
     out["k5s_err"] = _hold_k5(f"K5s vs plain at {label} {shape}",
                               (slab, cam_l), p5, S, T)
-    tab = (t["sph"], t["aligned"], t["clusters"], t["tops"], cv)
-    b2 = bound(kseg * (S * FLOPS_SPHERE + FLOPS_SHADE) + walk,
-               nbytes(*tab, img))
-    b5 = bound(kseg * (2 * (S * FLOPS_SPHERE + FLOPS_SHADE) + FLOPS_ADJOINT)
-               + walk, nbytes(*tab, g, slab, cam_l))
+    tab = (t["sph"], t["aligned"], t["clusters"], t["tops"], t["subs"], cv)
+    shading = kseg * (S * FLOPS_SPHERE + FLOPS_SHADE)
+    b2 = bound(shading + walk, nbytes(*tab, img))
+    b5 = bound(kseg * FLOPS_ADJOINT + 2 * shading + walk,
+               nbytes(*tab, g, slab, cam_l))
+    b2_old = bound(shading + walk_old, nbytes(*tab[:4], cv, img))
     log(f"  plain versions K2 {p2_ms:.3f} ms, K5s {p5_ms:.3f} ms; the walk "
-        f"{walk:.6e} operations of the rays' own top, leaf and triangle "
-        f"tests (the warps execute {warp:.6e}, {warp / walk:.2f}x: "
-        f"divergence); bounds K2 "
-        f"{b2[0]:.4f} ms by {b2[1]} ({100 * b2[0] / f_ms:.2f}% of its time), "
-        f"K5s {b5[0]:.4f} ms by {b5[1]} ({100 * b5[0] / b_ms:.2f}%)")
+        f"{walk:.6e} operations of the rays' own top, leaf and sub-leaf box "
+        f"and triangle tests (the (pixel, sample) warps execute "
+        f"{warp:.6e}, {warp / walk:.2f}x: divergence); counted without "
+        f"sub-leaves {walk_old:.6e} (the 8x4-pixel warps "
+        f"{warp_old / walk_old:.2f}x); bounds K2 {b2[0]:.4f} ms by {b2[1]} "
+        f"({100 * b2[0] / f_ms:.2f}% of its time; without sub-leaves "
+        f"{b2_old[0]:.4f} ms), K5s {b5[0]:.4f} ms by {b5[1]} "
+        f"({100 * b5[0] / b_ms:.2f}%)")
     out.update(k2_plain_ms=p2_ms, k5s_plain_ms=p5_ms, k2_bound=b2,
                k5s_bound=b5)
     return out
@@ -1768,7 +1845,7 @@ def phase_mesh_grad_throughput(rtt, smi, scenes) -> dict:
                                                                start))
             log(f"  walk crossover, {label} through the other walk:")
             other = _stream_kernels(scene, cam, label, start, shape,
-                                    target, plain=False)
+                                    target)
         finally:
             diff._needs_stream = real
         want = _only(K2=1, K5s=1) if forced else _only(K1=1, K5=1)
@@ -1783,6 +1860,8 @@ def phase_mesh_grad_throughput(rtt, smi, scenes) -> dict:
             f"{other['fwd_ms']:.3f} + {other['bwd_ms']:.3f} ms against "
             f"{out[label]['fwd_ms']:.3f} + {out[label]['bwd_ms']:.3f} ms)")
         out[label]["other_walk_ms"] = sec * 1e3
+        out[label]["other_err"] = (other.get("k2_err", 0.0),
+                                   other.get("k5s_err", 0.0))
         # other leaves permute the columns: exact ties may resolve to
         # another triangle; count the lanes and pixels that moved
         d = (other["img"] - out[label]["img"]).abs().amax(dim=-1)
@@ -2178,6 +2257,82 @@ def _cli_frame(rtt, scene):
         1.77778)
 
 
+def _sha(t) -> str:
+    return hashlib.sha256(
+        t.detach().contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def _pass_kernels(loss_fn, start, runs=10):
+    """One value and gradient of ``loss_fn`` at ``start`` with its forward
+    and backward kernel calls recorded (``render_linear_cuda``,
+    ``grad_slab_cuda``: entry points every version of the port has): each
+    call's device time replayed on its own inputs (CUDA events), and the
+    calls with their outputs."""
+    from raytracer_tpu_torch.ops.cuda import wavefront as wfc
+    from raytracer_tpu_torch.ops.cuda import wavefront_bwd as wb
+    with _Recorder(wfc, "render_linear_cuda") as fwd, \
+            _Recorder(wb, "grad_slab_cuda") as bwd:
+        _value_and_grad(loss_fn, start)
+    torch.cuda.synchronize()
+    if len(fwd.calls) != 1 or len(bwd.calls) != 1:
+        raise SystemExit(f"a gradient pass made {len(fwd.calls)} forward "
+                         f"and {len(bwd.calls)} backward kernel calls")
+    with torch.no_grad():
+        return fwd.replay_ms(runs)[0], bwd.replay_ms(runs)[0], \
+            fwd.calls[0], bwd.calls[0]
+
+
+def measure_grad_times(rtt) -> dict:
+    """K1 at the headline frame, K5 at the default world's gradient pass,
+    and the 164k gradient pass with its K2 and K5s, for ``--times``: the
+    headline frame's and K2's images, K5s's slab and camera lanes hashed.
+    The slab is hashed with its zeros as +0 (``slab_hash``; the raw bytes
+    in ``slab_raw_hash``): a lane dead at a bounce writes 0 x its stale
+    hit's gradients, whose sign of zero follows whichever hit its warp's
+    walk left it, and no reader of the slab tells -0 from +0."""
+    from raytracer_tpu_torch import ops
+    from raytracer_tpu_torch.ops import tables
+    from raytracer_tpu_torch.ops.cuda import wavefront as wfc
+    dev = torch.device("cuda")
+    out = {}
+    w = rtt.models.default_world()
+    scene, cam = w.to_scene(), w.to_camera()
+    head = dict(width=512, height=512, samples_per_pixel=64, depth=8)
+    mean, segs = ops.render_linear_fast(scene, cam, device=dev, seed=1,
+                                        **head)
+    sph, tri, scl, tcl = ops.scene_tables(scene, True, dev)
+    cv = tables.camera_vec(cam).to(dev)
+    kw = dict(head, seed=1, parity_plane_sign=True, sph_clusters=scl,
+              tri_clusters=tcl)
+    k1_ms = _event_ms(lambda: wfc.render_linear_cuda(sph, tri, cv, **kw))
+    out["k1"] = dict(ms=k1_ms, segs=segs, hash=_sha(mean))
+    _, _, _, loss_fn, start = _bench_grad(rtt)
+    _, k5_ms, _, (_, _, (slab, cam_l)) = _pass_kernels(loss_fn, start)
+    out["k5"] = dict(ms=k5_ms, slab_hash=_sha(slab + 0.0),
+                     cam_hash=_sha(cam_l))
+    log(f"  K1 headline frame {k1_ms:.3f} ms (framebuffer sha256 "
+        f"{out['k1']['hash'][:16]}); K5 at the default world's pass "
+        f"{k5_ms:.3f} ms")
+    del mean, slab, cam_l
+    scene, cam = (x.to(dev) for x in big_mesh_scene(rtt))
+    loss_fn, start, shape, _ = _mesh_grad_setup(rtt, scene, cam, "164k")
+    sec, _ = _median_seconds(lambda _: _value_and_grad(loss_fn, start))
+    k2_ms, k5s_ms, (_, _, (img, kseg)), (_, _, (slab, cam_l)) = \
+        _pass_kernels(loss_fn, start)
+    paths = shape["width"] * shape["height"] * shape["samples_per_pixel"]
+    out["164k"] = dict(pass_ms=sec * 1e3, paths_per_s=paths / sec,
+                       k2_ms=k2_ms, k5s_ms=k5s_ms, segs=kseg,
+                       img_hash=_sha(img), slab_hash=_sha(slab + 0.0),
+                       slab_raw_hash=_sha(slab), cam_hash=_sha(cam_l))
+    log(f"  164k gradient pass {shape}: median {sec * 1e3:.3f} ms -> "
+        f"{paths / sec:.6e} paths/s; K2 {k2_ms:.3f} ms, K5s {k5s_ms:.3f} ms "
+        f"(its own calls replayed, CUDA events); image "
+        f"{out['164k']['img_hash'][:16]}, slab "
+        f"{out['164k']['slab_hash'][:16]}, camera lanes "
+        f"{out['164k']['cam_hash'][:16]}")
+    return out
+
+
 def measure_k4_k6(rtt, smi) -> dict:
     """K4's and K6's times on their main paths, with only the entry points
     that every version of the port has, so the same code times an older
@@ -2186,7 +2341,6 @@ def measure_k4_k6(rtt, smi) -> dict:
     (median of 3), their bounces, sorts + gathers and assembly (CUDA
     events), the slots each bounce launched, peak memory, and a hash of
     each framebuffer."""
-    import hashlib
     from raytracer_tpu_torch import ops
     from raytracer_tpu_torch.ops import tables
     from raytracer_tpu_torch.ops.cuda import wavefront_stream as ws
@@ -2265,39 +2419,103 @@ UNSTAGED_PATCHES = (
 )
 
 
-def _unstaged_lib():
-    """The kernels built from a copy of csrc/ with UNSTAGED_PATCHES."""
+def _study_lib(name, patches):
+    """The kernels built from a copy of csrc/ (under build/) with
+    ``patches``: {file name: ((old, new), ...)}, each old text found once."""
     import shutil
     from raytracer_tpu_torch.ops.cuda import build
-    study = ROOT / "build" / "unstaged_study" / "csrc"
+    study = ROOT / "build" / name / "csrc"
     if study.exists():
         shutil.rmtree(study)
     shutil.copytree(build.CSRC_DIR, study)
-    src = (study / "path_common.cuh").read_text()
-    for a, b in UNSTAGED_PATCHES:
-        if src.count(a) != 1:
-            raise SystemExit(f"staging study: cannot patch {a!r}")
-        src = src.replace(a, b)
-    (study / "path_common.cuh").write_text(src)
+    for fname, pairs in patches.items():
+        src = (study / fname).read_text()
+        for a, b in pairs:
+            if src.count(a) != 1:
+                raise SystemExit(f"{name}: cannot patch {a!r}")
+            src = src.replace(a, b)
+        (study / fname).write_text(src)
     return build.load(study)
 
 
-def measure_parts(rtt, smi) -> dict:
+def _unstaged_lib():
+    """The kernels with UNSTAGED_PATCHES."""
+    return _study_lib("unstaged_study",
+                      {"path_common.cuh": UNSTAGED_PATCHES})
+
+
+# the residual study: K5s with a minimum of N resident blocks an SM
+# (__launch_bounds__(THREADS, N)), which caps its registers at 65536 /
+# (128 N) and keeps more warps resident, against the shipped kernel, whose
+# residuals (22 floats a bounce) stay in local memory either way
+RESIDUAL_BLOCKS = (4, 6)
+
+
+def _residual_lib(n):
+    return _study_lib(f"residual_study_{n}", {"wavefront_bwd.cu": ((
+        "__global__ void __launch_bounds__(THREADS)\n"
+        "    two_level_grad_kernel(",
+        f"__global__ void __launch_bounds__(THREADS, {n})\n"
+        "    two_level_grad_kernel("),)})
+
+
+def measure_parts_k2(rtt, libs) -> dict:
+    """What each part of the K2 and K5s designs buys at the 164k gradient
+    pass: the pass's own K2 and K5s calls replayed with and without the
+    staged tiles and with and without sub-leaf boxes (each sub-leaf given
+    its leaf's box), and K5s with RESIDUAL_BLOCKS; the image, slab (zeros
+    as +0) and camera lanes bitwise alike across the variants.  The
+    (pixel, sample) layout's share is the variant with neither part against
+    the parent's kernels, timed by ``--times`` in the same call."""
+    from raytracer_tpu_torch.ops.cuda import build
+    from raytracer_tpu_torch.ops.cuda import wavefront as wfc
+    from raytracer_tpu_torch.ops.cuda import wavefront_bwd as wb
+    dev = torch.device("cuda")
+    scene, cam = (x.to(dev) for x in big_mesh_scene(rtt))
+    loss_fn, start, shape, _ = _mesh_grad_setup(rtt, scene, cam, "164k")
+    _, _, (fa, fk, _), (ba, bk, _) = _pass_kernels(loss_fn, start)
+    real_load = build.load
+    out, hashes = {}, set()
+    variants = [(tiles, lib, subs) for tiles, lib in libs[:2]
+                for subs in (True, False)] + [
+        (tiles, lib, True) for tiles, lib in libs[2:]]
+    log(f"\nK2 and K5s parts at the 164k pass {shape}")
+    try:
+        for tiles, lib, subs in variants:
+            build.load = lambda csrc=None, lib=lib: lib
+            fkv = dict(fk, sub_bounds=fk["sub_bounds"] if subs else None)
+            bkv = dict(bk, sub_bounds=bk["sub_bounds"] if subs else None)
+            f_ms = _event_ms(lambda: wfc.render_linear_cuda(*fa, **fkv))
+            b_ms = _event_ms(lambda: wb.grad_slab_cuda(*ba, **bkv))
+            img, _ = wfc.render_linear_cuda(*fa, **fkv)
+            slab, cam_l = wb.grad_slab_cuda(*ba, **bkv)
+            hashes.add((_sha(img), _sha(slab + 0.0), _sha(cam_l)))
+            del img, slab, cam_l
+            key = f"{tiles}, sub-leaf boxes {'on' if subs else 'off'}"
+            out[key] = dict(k2_ms=f_ms, k5s_ms=b_ms)
+            log(f"  {key}: K2 {f_ms:.3f} ms, K5s {b_ms:.3f} ms")
+    finally:
+        build.load = real_load
+    log(f"  image, slab and camera lanes bitwise alike across the variants: "
+        f"{len(hashes) == 1}")
+    if len(hashes) != 1:
+        raise SystemExit("the K2 / K5s design-part variants differ")
+    return out
+
+
+def measure_parts(rtt, smi, staged, unstaged) -> dict:
     """What each part of the K4 and K6 designs buys, on this checkout: K4
     at the CLI's obj= frame (one launch, 16 bands) and at OBJ-10k 512x288
     with and without the staged tiles and with and without sub-leaf
     bounds; K6 at (A) and (B) with and without the staged tiles and with
     the live prefix or every slot each bounce (the test-only full-slot
     loop).  The frames stay bitwise alike across the variants."""
-    import hashlib
     from raytracer_tpu_torch import ops
     from raytracer_tpu_torch.ops import tables
     from raytracer_tpu_torch.ops.cuda import build
     from raytracer_tpu_torch.ops.cuda import wavefront_sorted as wso
     from raytracer_tpu_torch.ops.cuda import wavefront_stream as ws
     dev = torch.device("cuda")
-    staged = build.load()
-    unstaged = _unstaged_lib()
     real_load = build.load
     scenes = mesh_scenes(rtt)
     cli_scene, cli_cam = _cli_frame(rtt, scenes["OBJ-10k"][0])
@@ -2372,18 +2590,27 @@ def measure_parts(rtt, smi) -> dict:
 
 
 def parts_main(path) -> int:
-    """``--parts OUT``: measure_parts on this checkout, as JSON in OUT."""
+    """``--parts OUT``: measure_parts and measure_parts_k2 on this checkout,
+    as JSON in OUT."""
+    from raytracer_tpu_torch.ops.cuda import build
     smi = phase_device()
     rtt = import_port()
     phase_build()
-    out = measure_parts(rtt, smi)
+    libs = [("staged", build.load()), ("unstaged", _unstaged_lib())]
+    for n in RESIDUAL_BLOCKS:
+        lib = _residual_lib(n)
+        log(f"  K5s at {n} blocks an SM:")
+        ptxas_report(Path(lib._name).parent / "ptxas.log")
+        libs.append((f"staged, K5s at {n} blocks an SM", lib))
+    out = measure_parts(rtt, smi, libs[0][1], libs[1][1])
+    out["k2"] = measure_parts_k2(rtt, libs)
     Path(path).write_text(json.dumps(out))
     return 0
 
 
 def times_main(tree, path) -> int:
-    """``--times TREE OUT``: measure_k4_k6 for the port in the checkout
-    TREE, its ptxas figures, as JSON in OUT."""
+    """``--times TREE OUT``: measure_k4_k6 and measure_grad_times for the
+    port in the checkout TREE, its ptxas figures, as JSON in OUT."""
     smi = phase_device()
     rtt = import_port(tree)
     from raytracer_tpu_torch.ops.cuda import build
@@ -2391,17 +2618,19 @@ def times_main(tree, path) -> int:
     lib = build.load()
     log(f"times of {Path(rtt.__file__).parent}: built in "
         f"{time.perf_counter() - t0:.2f}s")
-    ptxas = ptxas_report(Path(lib._name).parent / "ptxas.log")
+    ptxas = ptxas_report(Path(lib._name).parent / "ptxas.log",
+                         required=False)
     out = measure_k4_k6(rtt, smi)
-    out.update(tree=str(tree), ptxas=ptxas)
+    out.update(measure_grad_times(rtt), tree=str(tree), ptxas=ptxas)
     Path(path).write_text(json.dumps(out))
     return 0
 
 
 def compare_times_main(paths) -> int:
     """``--compare-times OLD NEW ...``: the runs' times side by side; fails
-    unless every run's (A), (B) and CLI frames hash alike and their
-    segments agree."""
+    unless every run's (A), (B), CLI and headline frames, the 164k pass's
+    image, slab (zeros as +0) and camera lanes and the default world's
+    slab and camera lanes hash alike and their segments agree."""
     runs = [json.loads(Path(p).read_text()) for p in paths]
     for p, r in zip(paths, runs):
         k4 = r["k4"]
@@ -2419,8 +2648,20 @@ def compare_times_main(paths) -> int:
                 f"{[round(v, 3) for v in x['regroup_ms']]}; assembly "
                 f"{x['assembly_ms']:.3f} ms; (slots, live) {x['slots']}; "
                 f"peak {x['peak'] / 2**30:.3f} GiB")
+    for p, r in zip(paths, runs):
+        k = r["164k"]
+        log(f"{p}: K1 headline {r['k1']['ms']:.3f} ms; K5 default world "
+            f"{r['k5']['ms']:.3f} ms; 164k pass {k['pass_ms']:.3f} ms "
+            f"({k['paths_per_s']:.6e} paths/s), K2 {k['k2_ms']:.3f} ms, K5s "
+            f"{k['k5s_ms']:.3f} ms")
+    raw = {r["164k"]["slab_raw_hash"] for r in runs}
+    log(f"  164k slab raw bytes: "
+        f"{'equal in every run' if len(raw) == 1 else f'{len(raw)} hashes'}")
     for key in (("A", "hash"), ("A", "segs"), ("B", "hash"), ("B", "segs"),
-                ("k4", "cli_hash"), ("k4", "cli_segs")):
+                ("k4", "cli_hash"), ("k4", "cli_segs"), ("k1", "hash"),
+                ("k1", "segs"), ("k5", "slab_hash"), ("k5", "cam_hash"),
+                ("164k", "img_hash"), ("164k", "segs"),
+                ("164k", "slab_hash"), ("164k", "cam_hash")):
         vals = {r[key[0]][key[1]] for r in runs}
         log(f"  {key[0]} {key[1]}: "
             f"{'equal in every run' if len(vals) == 1 else vals}")
@@ -2446,7 +2687,7 @@ def main() -> int:
     stream = phase_stream_vs_plain(rtt, scenes)
     sorted_small = phase_sorted_vs_plain(rtt, scenes)
     lowp_err = phase_lowp_vs_plain(rtt)
-    launches = phase_main_path(rtt)
+    launches, cli_k1_ms = phase_main_path(rtt)
     train = phase_train(rtt)
     mesh_main = phase_mesh_main_paths(rtt, scenes)
     mgrad = phase_mesh_grad(rtt, scenes)
@@ -2459,6 +2700,22 @@ def main() -> int:
     soperf = phase_sorted_throughput(rtt, smi, scenes)
     head = perf["default world 512x512 64spp depth 8"]
     big = sperf["164k"]
+    # each kernel's device time over its launches on this run's main paths
+    # (launches x the time at their shapes): the redesign order's input
+    k1_total = (cli_k1_ms + train["k1_launches"] * gperf["k1_ms"]
+                + mgrad["launches"]["K1"] * sperf["OBJ-10k"]["fwd_ms"])
+    k5_total = (train["k5_launches"] * gperf["ms"]
+                + mgrad["launches"]["K5"] * sperf["OBJ-10k"]["bwd_ms"])
+    log(f"\nover this run's main-path launches: K1 {k1_total:.3f} ms "
+        f"({launches} CLI bands {cli_k1_ms:.3f} ms, {train['k1_launches']} "
+        f"x {gperf['k1_ms']:.3f} ms default-world passes, "
+        f"{mgrad['launches']['K1']} x {sperf['OBJ-10k']['fwd_ms']:.3f} ms "
+        f"OBJ-10k passes); K5 {k5_total:.3f} ms ({train['k5_launches']} x "
+        f"{gperf['ms']:.3f} + {mgrad['launches']['K5']} x "
+        f"{sperf['OBJ-10k']['bwd_ms']:.3f}); K2 "
+        f"{mgrad['launches']['K2'] * big['fwd_ms']:.3f} ms, K5s "
+        f"{mgrad['launches']['K5s'] * big['bwd_ms']:.3f} ms "
+        f"({mgrad['launches']['K2']} x the 164k pass's)")
     print(json.dumps({"kernels": [{
         "name": "wavefront_render (K1)", "route": "cuda",
         "source": "raytracer_tpu_torch/csrc/wavefront.cu",
@@ -2499,7 +2756,8 @@ def main() -> int:
         "source": "raytracer_tpu_torch/csrc/wavefront.cu",
         "replaces": "raytracer_tpu/ops/pallas/wavefront.py:1015",
         "launches": mgrad["launches"]["K2"],
-        "max_abs_err": max(stream["err"]["K2"], big["k2_err"]),
+        "max_abs_err": max(stream["err"]["K2"], big["k2_err"],
+                           sperf["OBJ-10k"]["other_err"][0]),
         "ms": big["fwd_ms"], "plain_ms": big["k2_plain_ms"],
         "bound_ms": big["k2_bound"][0], "bound_by": big["k2_bound"][1],
         "library_ms": None}, {
@@ -2507,7 +2765,8 @@ def main() -> int:
         "source": "raytracer_tpu_torch/csrc/wavefront_bwd.cu",
         "replaces": "raytracer_tpu/ops/pallas/wavefront_bwd.py:946",
         "launches": mgrad["launches"]["K5s"],
-        "max_abs_err": max(stream["err"]["K5s"], big["k5s_err"]),
+        "max_abs_err": max(stream["err"]["K5s"], big["k5s_err"],
+                           sperf["OBJ-10k"]["other_err"][1]),
         "ms": big["bwd_ms"], "plain_ms": big["k5s_plain_ms"],
         "bound_ms": big["k5s_bound"][0], "bound_by": big["k5s_bound"][1],
         "library_ms": None}, {

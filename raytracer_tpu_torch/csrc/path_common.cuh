@@ -13,9 +13,10 @@
 // triangle steps with their tie rules (spheres need a strictly smaller t,
 // triangles win ties), the sphere stage, the normal fix-ups, the
 // unit-sphere draw, the material scatter and the bounce bookkeeping; and
-// for K4 and K6 the warp-staged sub-leaf walk and K1's sample-order pixel
-// sum across a warp of (pixel, sample) lanes.  All files are built with
-// -fmad=false, so each expression rounds as written.
+// for K4, K6, K2 and K5s the warp-staged sub-leaf walk, and for K4, K2 and
+// K5s the (pixel, sample) thread layout, its persistent-warp tile loop and
+// K1's sample-order pixel sum across a warp of such lanes.  All files are
+// built with -fmad=false, so each expression rounds as written.
 
 #pragma once
 
@@ -308,7 +309,7 @@ __device__ __forceinline__ void tri_step(const float *__restrict__ tri, int nt,
   }
 }
 
-// ---- warp-staged sub-leaves (K4 and K6) ----
+// ---- warp-staged sub-leaves (K4, K6, K2 and K5s) ----
 // A warp whose vote passes a 32-column sub-leaf copies the sub-leaf's 16
 // test rows (TRI_NX .. edge 2's w: 2 KB) into a shared-memory tile with
 // cp.async, transposed: triangle j's rows sit at tile[j * STAGE_STRIDE ..],
@@ -394,9 +395,16 @@ __device__ __forceinline__ void tri_step_staged(const float *tile, int j,
   }
 }
 
+// the index of the lowest set bit of a nonzero mask
+__device__ __forceinline__ int lowest_bit(unsigned m) { return __ffs(m) - 1; }
+__device__ __forceinline__ int lowest_bit(unsigned long long m) {
+  return __ffsll(m) - 1;
+}
+
 // The warp-staged walk over the sub-leaves of one node.  Bit s of `mask`
-// marks sub-leaf s (up to 32 in visit order; sub-leaf s lies under parent
-// s / per_parent) whose parent and own bound a live lane passed at the
+// marks sub-leaf s (up to 32 in visit order with an unsigned mask, 64 with
+// an unsigned long long; sub-leaf s lies under parent s / per_parent)
+// whose parent and own bound a live lane passed at the
 // node's start.  The walk tests them in order exactly as the sequential
 // walk would: bound tests are monotone in t_best, so a sub-leaf outside the
 // mask fails later too, and one inside it votes again before its test
@@ -405,20 +413,20 @@ __device__ __forceinline__ void tri_step_staged(const float *tile, int j,
 // sub-leaf is tested from its tile (test(s, tile)), the copy of the next
 // one in the mask is in flight into the other (stage(s, tile)).  `tiles`
 // holds the warp's two tiles; `mask` is warp-uniform and every lane calls.
-template <class ParentOk, class SubOk, class Stage, class Test>
-__device__ __forceinline__ void staged_sub_walk(unsigned mask, int per_parent,
+template <class Mask, class ParentOk, class SubOk, class Stage, class Test>
+__device__ __forceinline__ void staged_sub_walk(Mask mask, int per_parent,
                                                 float *tiles,
                                                 ParentOk parent_ok,
                                                 SubOk sub_ok, Stage stage,
                                                 Test test) {
   if (mask == 0u) return;
-  int cur = __ffs(mask) - 1;
+  int cur = lowest_bit(mask);
   mask &= mask - 1u;
   stage(cur, tiles);
   int buf = 0, parent = cur / per_parent;
   bool parent_pass = true, first = true;
   while (true) {
-    const int nxt = mask ? __ffs(mask) - 1 : -1;
+    const int nxt = mask ? lowest_bit(mask) : -1;
     if (nxt >= 0) {
       mask &= mask - 1u;
       stage(nxt, tiles + (buf ^ 1) * STAGE_FLOATS);
@@ -456,17 +464,28 @@ __device__ __forceinline__ float pixel_sum_run(float acc, float v, int run,
   return acc;
 }
 
-// leaf slot width of the leaf-aligned table of the two-level walk: leaf ci's
-// triangles sit in columns [128 ci, 128 ci + n) (ops/diff.py)
+// ---- the leaf-aligned table of the two-level walk ----
+// leaf slot width of the leaf-aligned table: leaf li's triangles sit in
+// columns [128 li, 128 li + n) (ops/diff.py), its sub-leaf k in columns
+// [128 li + 32 k, 128 li + 32 k + 32); a top holds at most 16 leaves, so
+// its sub-leaves fit one 64-bit mask
 constexpr int STREAM_LEAF_PAD = 128;
+constexpr int LEAF_SUBS = STREAM_LEAF_PAD / STAGE_COLS;
+constexpr int TOP_LEAVES_MAX = 16;
 
-// closest hit over the triangles: flat; culled warp by warp through leaf
-// AABBs (one level); or, with n_tops > 0, the two-level walk of
-// _streamed_tri_walk: tops of consecutive leaves gate the leaf tests, and a
-// passing leaf's packed count of columns is read from its 128-column slot of
-// the leaf-aligned table.  Winner ids are n_sph + the packed column either
-// way, so both walks over the same leaves take the same hits.  Loop bounds
-// are warp-uniform: every lane reaches every __any_sync.
+// closest hit over the triangles: flat, or culled warp by warp through
+// leaf AABBs (one level: K1, K5, and K1 over the leaves of a two-level
+// walk, which K2 must equal).  Winner ids are n_sph + the column.  The
+// n_tops > 0 branch is the sequential two-level walk (_streamed_tri_walk:
+// tops gate the leaf tests, a passing leaf's packed count of columns read
+// from its slot, winners n_sph + the packed column) that K2 and K5s ran
+// before they had kernels of their own (two_level_staged_walk below).  No
+// entry point passes tops now.  K1 still takes n_tops from its parameters
+// (always 0) because its register allocation follows the branch: built
+// without it, K1 took 72 registers where it takes 64 and K1-lowp 64 where
+// it takes 56 (ptxas, sm_90a); K5 passes a literal 0, which keeps its
+// registers and spills.  Loop bounds are warp-uniform: every lane reaches
+// every __any_sync.
 template <bool PARITY, bool TRACK>
 __device__ __forceinline__ void triangle_hits(
     const float *__restrict__ tri, int n_tri, const float *__restrict__ tric_b,
@@ -510,6 +529,159 @@ __device__ __forceinline__ void triangle_hits(
       tri_step<PARITY, TRACK>(tri, n_tri, ti, r, h,
                               (float)n_sph + (float)ti);
   }
+}
+
+// ---- the two-level walk of the differentiable path (K2 and K5s) ----
+// the walk's tables (row-major, device memory): the leaf-aligned triangle
+// table (24, 128 n_leaves), leaf AABBs (6, n_leaves) and their PACKED
+// column ranges (2, n_leaves), sub-leaf AABBs (6, 4 n_leaves), top AABBs
+// (6, n_tops) and leaf ranges (2, n_tops)
+struct TwoLevel {
+  const float *tri;
+  const float *leafb;
+  const int *leafr;
+  const float *subb;
+  const float *topb;
+  const int *topr;
+  int n_leaves, n_tops;
+};
+
+// _streamed_tri_walk (the correct plane equation) with sub-leaf boxes and
+// warp-staged sub-leaves: tops in index order, each voted with the warp's
+// hits so far; a passing top's leaves and their 32-column sub-leaves voted
+// at once into a mask; then staged_sub_walk tests the masked sub-leaves in
+// index order, re-voting each (and each later leaf) before its test.
+// Culling a box no lane can reach changes no hit, and each ray meets its
+// triangles in the sequential walk's order (leaf by leaf, column by
+// column; ties go to the last visited), so the hits are K1's over the same
+// leaves bit for bit.  Winner ids are n_sph + the packed column.  `tiles`:
+// the warp's two staging tiles; every lane calls.
+template <bool TRACK>
+__device__ __forceinline__ void two_level_staged_walk(const TwoLevel &w,
+                                                      int n_sph, const Ray &r,
+                                                      bool alive, Hit &h,
+                                                      float *tiles, int lane) {
+  const int n_cols = w.n_leaves * STREAM_LEAF_PAD;
+  const int n_subs = w.n_leaves * LEAF_SUBS;
+  const float ivx = inv_dir(r.dx), ivy = inv_dir(r.dy), ivz = inv_dir(r.dz);
+  auto leaf_ok = [&](int li) {
+    return __any_sync(FULL_MASK, alive && aabb_test(w.leafb, w.n_leaves, li,
+                                                    r, ivx, ivy, ivz, h.t));
+  };
+  auto sub_ok = [&](int si) {
+    return __any_sync(FULL_MASK, alive && aabb_test(w.subb, n_subs, si, r,
+                                                    ivx, ivy, ivz, h.t));
+  };
+  for (int tci = 0; tci < w.n_tops; ++tci) {
+    if (!__any_sync(FULL_MASK, alive && aabb_test(w.topb, w.n_tops, tci, r,
+                                                  ivx, ivy, ivz, h.t)))
+      continue;
+    const int l0 = w.topr[tci], l1 = w.topr[w.n_tops + tci];
+    unsigned long long mask = 0ull;
+    for (int li = l0; li < l1; ++li) {
+      if (!leaf_ok(li)) continue;
+      const int n = w.leafr[w.n_leaves + li] - w.leafr[li];
+      for (int k = 0; k * STAGE_COLS < n; ++k)
+        if (sub_ok(li * LEAF_SUBS + k))
+          mask |= 1ull << ((li - l0) * LEAF_SUBS + k);
+    }
+    staged_sub_walk(
+        mask, LEAF_SUBS, tiles, [&](int q) { return leaf_ok(l0 + q); },
+        [&](int s) { return sub_ok(l0 * LEAF_SUBS + s); },
+        [&](int s, float *tile) {
+          stage_sub_leaf(tile, w.tri, n_cols,
+                         l0 * STREAM_LEAF_PAD + s * STAGE_COLS, lane);
+        },
+        [&](int s, const float *tile) {
+          const int li = l0 + s / LEAF_SUBS;
+          const int k0 = (s % LEAF_SUBS) * STAGE_COLS;
+          const int p0 = w.leafr[li] + k0;
+          const int n = min(w.leafr[w.n_leaves + li] - p0, STAGE_COLS);
+          const int col0 = li * STREAM_LEAF_PAD + k0;
+          for (int j = 0; j < n; ++j)
+            tri_step_staged<false, TRACK>(tile, j, w.tri, n_cols, col0 + j,
+                                          r, h, (float)n_sph + (float)(p0 + j));
+        });
+  }
+}
+
+// ---- the (pixel, sample) thread layout (K2 and K5s) ----
+// ops/cuda/wavefront_stream.py thread_layout: a warp holds a tile_w x
+// tile_h tile of pixels x `run` consecutive samples of each (lane = pixel *
+// run + sample % run, pixels row-major in the tile); a spp above the run
+// loops over runs in the thread; warp tile w sits at (w % tiles_x, w /
+// tiles_x) of the band
+struct TileLayout {
+  int run, tile_w, tile_h, tiles_x, n_tiles;
+};
+
+// what a lane of warp tile w traces: its pixel (band row, column, clamped
+// global row and column, the RNG word) and its sample offset j in the run
+struct LanePixel {
+  int band_row, pcol, j;
+  bool in_band, active0;
+  unsigned pix_u;
+  float prow_f, pcol_f;
+};
+
+__device__ __forceinline__ LanePixel lane_pixel(const TileLayout &lay, int w,
+                                                int lane, int width,
+                                                int height, int shard_rows,
+                                                int row_offset, int row_stride,
+                                                unsigned seed_word) {
+  LanePixel q;
+  const int pix = lane / lay.run;
+  q.j = lane % lay.run;
+  q.pcol = (w % lay.tiles_x) * lay.tile_w + pix % lay.tile_w;
+  q.band_row = (w / lay.tiles_x) * lay.tile_h + pix / lay.tile_w;
+  const int prow = row_offset + q.band_row * row_stride;
+  q.in_band = (q.band_row < shard_rows) && (q.pcol < width);
+  q.active0 = (prow < height) && q.in_band;
+  const int prow_c = min(prow, height - 1);
+  const int pcol_c = min(q.pcol, width - 1);
+  q.pix_u = (unsigned)(prow_c * width + pcol_c) + seed_word;
+  q.prow_f = (float)prow_c;
+  q.pcol_f = (float)pcol_c;
+  return q;
+}
+
+// Persistent warps: the grid holds only as many blocks as the card keeps
+// resident, and each warp takes the next tile from `next_tile` (0 at
+// launch) until none is left, so no launch ends in a part-empty wave of
+// whole blocks.  body(w) traces tile w; every lane calls.
+template <class Body>
+__device__ __forceinline__ void for_each_tile(int *next_tile, int n_tiles,
+                                              int lane, Body body) {
+  for (;;) {
+    int w = 0;
+    if (lane == 0) w = atomicAdd(next_tile, 1);
+    w = __shfl_sync(FULL_MASK, w, 0);
+    if (w >= n_tiles) return;  // warp-uniform
+    body(w);
+  }
+}
+
+// whether the kernels take a thread layout with `blocks` blocks of THREADS
+inline bool layout_ok(const TileLayout &lay, int width, int blocks) {
+  return lay.run >= 1 && lay.run <= 32 && !(lay.run & (lay.run - 1)) &&
+         lay.tile_w * lay.tile_h * lay.run == 32 &&
+         lay.tiles_x * lay.tile_w >= width && lay.n_tiles >= 1 &&
+         (long long)blocks * (THREADS / 32) >= lay.n_tiles;
+}
+
+// a persistent launch's grid: as many blocks of THREADS as the card keeps
+// resident, at most `blocks`
+template <class Kernel>
+inline cudaError_t resident_grid(Kernel kernel, int blocks, int &grid) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      THREADS, 0);
+  grid = min(blocks, max(per_sm * sms, 1));
+  return e;
 }
 
 // the camera ray through (u, v): cam is [origin, lower-left corner,

@@ -108,18 +108,37 @@ def load(csrc=CSRC_DIR) -> ctypes.CDLL:
     fn = lib.rt_wavefront_render
     fn.argtypes = [p, i, p, i, p,        # sph, n_sph, tri, n_tri, cam
                    p, p, i, p, p, i,     # sphere / triangle clusters
-                   p, p, i,              # tops of the two-level walk (K2)
                    p, p,                 # mean, segs
                    i, i, u, i, i, i,     # width .. shard_rows
                    i, i, f, i, i, p]     # spp .. parity, lowp, stream
     fn.restype = ctypes.c_int
+    fn = lib.rt_wavefront_render_stream
+    fn.argtypes = [p, i, p, p, i,        # sph, n_sph, sphere clusters
+                   p, p, p, p, i,        # tri, leaf bounds / ranges, sub
+                                         # bounds, n_leaves
+                   p, p, i,              # top bounds / ranges, n_tops
+                   p, p, p, p,           # cam, mean, segs, counter
+                   i, i, u, i, i, i,     # width .. shard_rows
+                   i, i, f,              # spp, depth, inv_spp
+                   i, i, i, i, i, i,     # thread layout: run .. blocks
+                   p]                    # stream
+    fn.restype = ctypes.c_int
     fn = lib.rt_wavefront_grad
     fn.argtypes = [p, i, p, i, p,        # sph, n_sph, tri, n_tri, cam
                    p, p, i,              # triangle clusters
-                   p, p, i,              # tops of the two-level walk (K5s)
                    p, p, p,              # g_image, slab, cam_lanes
                    i, i, u, i, i, i,     # width .. shard_rows
                    i, i, f, i, p]        # spp, depth, inv_spp, parity, stream
+    fn.restype = ctypes.c_int
+    fn = lib.rt_wavefront_grad_stream
+    fn.argtypes = [p, i, p, p, p, p, i,  # sph, n_sph, tri, leaf bounds /
+                                         # ranges, sub bounds, n_leaves
+                   p, p, i, p,           # top bounds / ranges, n_tops, cam
+                   p, p, p, p,           # g_image, slab, cam_lanes, counter
+                   i, i, u, i, i, i,     # width .. shard_rows
+                   i, i, f,              # spp, depth, inv_spp
+                   i, i, i, i, i, i,     # thread layout: run .. blocks
+                   p]                    # stream
     fn.restype = ctypes.c_int
     fn = lib.rt_stream_render
     fn.argtypes = [p, i, p, p, i,        # sph, n_sph, sphere clusters

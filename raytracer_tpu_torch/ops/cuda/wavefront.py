@@ -1,30 +1,36 @@
-"""K1, K2 and K1-lowp, the fused forward render kernel: CUDA wrapper and
+"""K1, K2 and K1-lowp, the fused forward render kernels: CUDA wrapper and
 plain version.
 
-``render_linear_cuda`` launches the hand-written CUDA kernel in
-``raytracer_tpu_torch/csrc/wavefront.cu``, which replaces the TPU kernel
+``render_linear_cuda`` launches the hand-written CUDA kernels in
+``raytracer_tpu_torch/csrc/wavefront.cu``, which replace the TPU kernel
 ``raytracer_tpu/ops/pallas/wavefront.py`` ``render_linear_pallas`` /
 ``_make_kernel``: the whole path trace of a frame (or of a row band) fused
-into one launch, one thread per pixel.  K2 is the same kernel with
-``tri_stream``: the two-level walk of ``_streamed_tri_walk`` over a
-leaf-aligned triangle table (``ops.diff.tri_stream_table``), the
-differentiable forward of meshes past the table budget.  K1-lowp is the
-same kernel with ``lowp``: the sphere quadratic in bfloat16
-(``_sphere_loop_lowp``, the reduced-precision study of the JAX package),
-a flat scan of the sphere table that ignores its clusters.  On the card it
-is bound by FP32 ALU throughput and branch divergence, not by bytes: the
-scene tables stay in L1/L2 and device memory sees one write of the image.
-The kernel keeps all ray state in registers, gives each warp a compact 8x4
-pixel tile so its rays take the same cluster-culling decisions, and ends a
-warp's bounce loop when none of its rays is alive.
+into one launch.  K1 runs one thread per pixel: on the card it is bound by
+FP32 ALU throughput and branch divergence, not by bytes (the scene tables
+stay in L1/L2 and device memory sees one write of the image); it keeps all
+ray state in registers, gives each warp a compact 8x4 pixel tile so its
+rays take the same cluster-culling decisions, and ends a warp's bounce loop
+when none of its rays is alive.  K1-lowp is K1 with ``lowp``: the sphere
+quadratic in bfloat16 (``_sphere_loop_lowp``, the reduced-precision study
+of the JAX package), a flat scan of the sphere table that ignores its
+clusters.  K2 is the kernel of ``tri_stream``: the two-level walk of
+``_streamed_tri_walk`` over a leaf-aligned triangle table
+(``ops.diff.tri_stream_table``), the differentiable forward of meshes past
+the table budget.  It runs one thread per (pixel, sample) in the layout of
+``wavefront_stream.thread_layout`` on persistent warps, culls each leaf's
+32-column sub-leaves by their own boxes (``sub_bounds``) and stages a
+passing sub-leaf in shared memory; each pixel's samples are summed in
+sample order (``wavefront_stream.pixel_sum_ref``), so its image is bitwise
+what one thread per pixel gives.
 
 ``render_linear_ref`` is the plain PyTorch version: vectorised over pixels,
 a Python loop over primitives (K2's: over tops, a top's columns at once),
 the kernel's operation order, and the per-ray cluster test applied as a
 mask; with ``lowp`` the sphere stage in torch bfloat16 ops, which round
-each result once as the kernel's ``__float2bfloat16_rn`` does.  It runs
-wherever its tensors are (the CPU tests, and on the card to check the
-kernel).
+each result once as the kernel's ``__float2bfloat16_rn`` does.  Culling by
+sub-leaf boxes cannot change a hit (the boxes are conservative), so K2's
+plain version only checks ``sub_bounds``.  It runs wherever its tensors
+are (the CPU tests, and on the card to check the kernel).
 
 The wrapper uses the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises.  ``LAUNCHES`` counts the
@@ -36,14 +42,17 @@ Arguments of both (the keywords of ``render_linear_pallas``):
   ``ops.tables``; sph_clusters / tri_clusters: optional (bounds (6, C) f32,
   ranges (2, C) int32) matching tables packed with the cluster ``perm``;
   tri_stream: optional (top bounds (6, Ct) f32, top ranges (2, Ct) int32
-  over the leaves) of the two-level walk; ``tri`` is then the leaf-aligned
-  (TRI_ROWS_PAD, 128 C) table and ``tri_clusters`` the leaf bounds with
-  their ranges in the PACKED table, so winners are packed columns;
-  shard_rows / row_offset / row_stride render rows ``row_offset +
-  k * row_stride`` for k < shard_rows.  Pixel ids, and so the random
-  streams, depend only on the global (row, col): a banded render is bitwise
-  the matching rows of a whole one.  Returns (mean [shard_rows, W, 3] f32,
-  traced segments as a Python int).
+  over the leaves, at most 16 leaves a top) of the two-level walk; ``tri``
+  is then the leaf-aligned (TRI_ROWS_PAD, 128 C) table and
+  ``tri_clusters`` the leaf bounds with their ranges in the PACKED table,
+  so winners are packed columns; sub_bounds: with tri_stream, optional
+  (6, 4 C) f32 boxes of each leaf's slot columns [32k, 32k + 32)
+  (``ops.diff.tri_sub_bounds``; without them K2 gives each sub-leaf its
+  leaf's box); shard_rows / row_offset / row_stride render rows
+  ``row_offset + k * row_stride`` for k < shard_rows.  Pixel ids, and so
+  the random streams, depend only on the global (row, col): a banded
+  render is bitwise the matching rows of a whole one.  Returns (mean
+  [shard_rows, W, 3] f32, traced segments as a Python int).
 """
 
 from __future__ import annotations
@@ -55,13 +64,18 @@ from .. import tables
 from ... import rng
 
 __all__ = ["LAUNCHES", "STREAM_LAUNCHES", "LOWP_LAUNCHES", "STREAM_LEAF_PAD",
-           "render_linear_cuda", "render_linear_ref"]
+           "LEAF_SUBS", "TOP_LEAVES_MAX", "render_linear_cuda",
+           "render_linear_ref"]
 
 LAUNCHES = 0
 STREAM_LAUNCHES = 0
 LOWP_LAUNCHES = 0
-# columns of a leaf's slot in the two-level walk's leaf-aligned table
+# columns of a leaf's slot in the two-level walk's leaf-aligned table, its
+# 32-column sub-leaves, and the most leaves a top may hold (K2 and K5s
+# stage a top's sub-leaves through a 64-bit mask: path_common.cuh)
 STREAM_LEAF_PAD = 128
+LEAF_SUBS = 4
+TOP_LEAVES_MAX = 16
 
 _F32 = torch.float32
 # float32 values of the kernel's constants (wavefront.cu)
@@ -109,9 +123,10 @@ def check_clusters(name, cl, n, device):
         raise ValueError(f"{name} ranges fall outside the table")
 
 
-def check_stream(tri, tri_clusters, tri_stream, device):
+def check_stream(tri, tri_clusters, tri_stream, sub_bounds, device):
     """The two-level walk's tables: a leaf-aligned ``tri`` of 128 columns
-    per leaf, leaves of at most 128 triangles, tops over the leaves."""
+    per leaf, leaves of at most 128 triangles, tops of at most 16 leaves,
+    and optional (6, 4 C) sub-leaf boxes."""
     if tri_clusters is None:
         raise ValueError("tri_stream needs the leaf clusters (tri_clusters)")
     bounds, ranges = tri_clusters
@@ -121,14 +136,21 @@ def check_stream(tri, tri_clusters, tri_stream, device):
                          f"columns, expected {STREAM_LEAF_PAD} x {n_leaves}")
     check_clusters("tri_stream", tri_stream, n_leaves, device)
     counts = ranges[1] - ranges[0]
-    if int(counts.min()) < 0 or int(counts.max()) > STREAM_LEAF_PAD:
+    spans = tri_stream[1][1] - tri_stream[1][0]
+    if bool((counts.min() < 0) | (counts.max() > STREAM_LEAF_PAD)
+            | (spans.min() < 0) | (spans.max() > TOP_LEAVES_MAX)):
         raise ValueError(f"a leaf holds more than {STREAM_LEAF_PAD} "
-                         f"triangles")
+                         f"triangles or a top more than {TOP_LEAVES_MAX} "
+                         f"leaves")
+    if sub_bounds is not None:
+        check_tensor(sub_bounds, "sub_bounds", _F32,
+                     (6, LEAF_SUBS * n_leaves), device)
 
 
 def _check_inputs(sph, tri, cam_vec, sph_clusters, tri_clusters, *, width,
                   height, samples_per_pixel, depth, parity_plane_sign,
-                  shard_rows, row_offset, row_stride, tri_stream=None) -> int:
+                  shard_rows, row_offset, row_stride, tri_stream=None,
+                  sub_bounds=None) -> int:
     """Raise on anything the kernel cannot take; return shard_rows."""
     if tri_clusters is not None and parity_plane_sign:
         raise ValueError(
@@ -143,7 +165,10 @@ def _check_inputs(sph, tri, cam_vec, sph_clusters, tri_clusters, *, width,
     if tri.shape[1] < 1:
         raise ValueError("tables need at least one (padding) column")
     if tri_stream is not None:
-        check_stream(tri, tri_clusters, tri_stream, device)
+        check_stream(tri, tri_clusters, tri_stream, sub_bounds, device)
+    elif sub_bounds is not None:
+        raise ValueError("sub_bounds belong to the two-level walk "
+                         "(tri_stream)")
     return check_shape(width=width, height=height,
                        samples_per_pixel=samples_per_pixel, depth=depth,
                        shard_rows=shard_rows, row_offset=row_offset,
@@ -172,16 +197,17 @@ def render_linear_cuda(sph, tri, cam_vec, *, width, height,
                        samples_per_pixel, depth, seed=0,
                        parity_plane_sign=True, sph_clusters=None,
                        tri_clusters=None, shard_rows=None, row_offset=0,
-                       row_stride=1, tri_stream=None, lowp=False):
+                       row_stride=1, tri_stream=None, sub_bounds=None,
+                       lowp=False):
     """Mean linear radiance [shard_rows, W, 3] + segment count through K1,
     K2 with ``tri_stream``, K1-lowp with ``lowp`` (the plain version for
     CPU tensors)."""
-    global LAUNCHES, STREAM_LAUNCHES, LOWP_LAUNCHES
+    global LAUNCHES, LOWP_LAUNCHES
     kw = dict(width=width, height=height,
               samples_per_pixel=samples_per_pixel, depth=depth,
               parity_plane_sign=parity_plane_sign, shard_rows=shard_rows,
               row_offset=row_offset, row_stride=row_stride,
-              tri_stream=tri_stream)
+              tri_stream=tri_stream, sub_bounds=sub_bounds)
     name = "K1-lowp" if lowp else "K1" if tri_stream is None else "K2"
     if sph.device.type == "cpu":
         return render_linear_ref(sph, tri, cam_vec, seed=seed,
@@ -189,6 +215,8 @@ def render_linear_cuda(sph, tri, cam_vec, *, width, height,
                                  tri_clusters=tri_clusters, lowp=lowp, **kw)
     if sph.device.type != "cuda":
         raise ValueError(f"{name} runs on CUDA tensors, got {sph.device}")
+    if tri_stream is not None and lowp:
+        raise ValueError("K1-lowp takes no two-level walk (tri_stream)")
     shard_rows = _check_inputs(sph, tri, cam_vec, sph_clusters,
                                tri_clusters, **kw)
     from . import build
@@ -196,21 +224,19 @@ def render_linear_cuda(sph, tri, cam_vec, *, width, height,
     device = sph.device
     mean = torch.empty((shard_rows, width, 3), dtype=_F32, device=device)
     segs = torch.empty((shard_rows, width), dtype=torch.int32, device=device)
+    if tri_stream is not None:
+        _launch_k2(lib, sph, tri, cam_vec, sph_clusters, tri_clusters, mean,
+                   segs, seed=seed, **dict(kw, shard_rows=shard_rows))
+        return mean, int(torch.sum(segs, dtype=torch.int64))
     sphc_b, sphc_r = sph_clusters if sph_clusters is not None else (None,
                                                                     None)
     tric_b, tric_r = tri_clusters if tri_clusters is not None else (None,
                                                                     None)
-    trit_b, trit_r = tri_stream if tri_stream is not None else (None, None)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
     with torch.cuda.device(device):
         rc = lib.rt_wavefront_render(
             ptr(sph), sph.shape[1], ptr(tri), tri.shape[1], ptr(cam_vec),
             ptr(sphc_b), ptr(sphc_r), 0 if sphc_b is None else sphc_b.shape[1],
             ptr(tric_b), ptr(tric_r), 0 if tric_b is None else tric_b.shape[1],
-            ptr(trit_b), ptr(trit_r), 0 if trit_b is None else trit_b.shape[1],
             ptr(mean), ptr(segs), width, height, rng.seed_word(seed),
             row_offset, row_stride, shard_rows, samples_per_pixel, depth,
             _inv_spp(samples_per_pixel), int(bool(parity_plane_sign)),
@@ -220,11 +246,59 @@ def render_linear_cuda(sph, tri, cam_vec, *, width, height,
                            f"cudaError {rc}")
     if lowp:
         LOWP_LAUNCHES += 1
-    elif tri_stream is None:
-        LAUNCHES += 1
     else:
-        STREAM_LAUNCHES += 1
+        LAUNCHES += 1
     return mean, int(torch.sum(segs, dtype=torch.int64))
+
+
+def ptr(t):
+    """A tensor's device address for the C entry points (None: null)."""
+    return None if t is None else t.data_ptr()
+
+
+def stream_launch_args(tri, tri_clusters, tri_stream, sub_bounds, *, width,
+                       shard_rows, samples_per_pixel):
+    """The two-level walk's table pointers and counts and the thread layout
+    of K2 and K5s, in the C entry points' order: (tri, leaf bounds, leaf
+    ranges, sub-leaf bounds, n_leaves, top bounds, top ranges, n_tops),
+    (run, tile_w, tile_h, tiles_x, n_tiles, blocks), and the tensors they
+    point into.  Without ``sub_bounds`` each sub-leaf takes its leaf's
+    box."""
+    from . import wavefront_stream as ws
+    (leaf_b, leaf_r), (top_b, top_r) = tri_clusters, tri_stream
+    if sub_bounds is None:
+        sub_bounds = leaf_b.repeat_interleave(LEAF_SUBS, dim=1)
+    lay = ws.thread_layout(width, shard_rows, samples_per_pixel)
+    walk = (ptr(tri), ptr(leaf_b), ptr(leaf_r), ptr(sub_bounds),
+            leaf_b.shape[1], ptr(top_b), ptr(top_r), top_b.shape[1])
+    return walk, (lay.run, lay.tile_w, lay.tile_h, lay.tiles_x, lay.n_tiles,
+                  lay.blocks), sub_bounds
+
+
+def _launch_k2(lib, sph, tri, cam_vec, sph_clusters, tri_clusters, mean,
+               segs, *, width, height, samples_per_pixel, depth, seed,
+               shard_rows, row_offset, row_stride, tri_stream, sub_bounds,
+               parity_plane_sign):
+    global STREAM_LAUNCHES
+    device = sph.device
+    walk, lay, subs = stream_launch_args(
+        tri, tri_clusters, tri_stream, sub_bounds, width=width,
+        shard_rows=shard_rows, samples_per_pixel=samples_per_pixel)
+    next_tile = torch.zeros((1,), dtype=torch.int32, device=device)
+    sphc_b, sphc_r = sph_clusters if sph_clusters is not None else (None,
+                                                                    None)
+    with torch.cuda.device(device):
+        rc = lib.rt_wavefront_render_stream(
+            ptr(sph), sph.shape[1], ptr(sphc_b), ptr(sphc_r),
+            0 if sphc_b is None else sphc_b.shape[1], *walk, ptr(cam_vec),
+            ptr(mean), ptr(segs), ptr(next_tile), width, height,
+            rng.seed_word(seed), row_offset, row_stride, shard_rows,
+            samples_per_pixel, depth, _inv_spp(samples_per_pixel), *lay,
+            torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"K2 (rt_wavefront_render_stream) launch failed: "
+                           f"cudaError {rc}")
+    STREAM_LAUNCHES += 1
 
 
 # ---------------------------------------------------------------------------
@@ -662,7 +736,8 @@ def render_linear_ref(sph, tri, cam_vec, *, width, height,
                       samples_per_pixel, depth, seed=0,
                       parity_plane_sign=True, sph_clusters=None,
                       tri_clusters=None, shard_rows=None, row_offset=0,
-                      row_stride=1, tri_stream=None, lowp=False):
+                      row_stride=1, tri_stream=None, sub_bounds=None,
+                      lowp=False):
     """K1's (K2's with ``tri_stream``, K1-lowp's with ``lowp``) plain
     PyTorch version: same arguments and results as ``render_linear_cuda``,
     on whatever device the tensors are."""
@@ -670,7 +745,8 @@ def render_linear_ref(sph, tri, cam_vec, *, width, height,
         sph, tri, cam_vec, sph_clusters, tri_clusters, width=width,
         height=height, samples_per_pixel=samples_per_pixel, depth=depth,
         parity_plane_sign=parity_plane_sign, shard_rows=shard_rows,
-        row_offset=row_offset, row_stride=row_stride, tri_stream=tri_stream)
+        row_offset=row_offset, row_stride=row_stride, tri_stream=tri_stream,
+        sub_bounds=sub_bounds)
     if tri_stream is not None:
         tri_stage = stream_tri_stage(tri, tri_clusters, tri_stream)
     else:

@@ -1,18 +1,21 @@
-"""K5 and K5s, the backward render kernel: CUDA wrapper, plain version and
+"""K5 and K5s, the backward render kernels: CUDA wrapper, plain version and
 the per-primitive winner reduction.
 
-``render_grad_cuda`` launches the hand-written CUDA kernel in
-``raytracer_tpu_torch/csrc/wavefront_bwd.cu``, which replaces the TPU kernel
+``render_grad_cuda`` launches the hand-written CUDA kernels in
+``raytracer_tpu_torch/csrc/wavefront_bwd.cu``, which replace the TPU kernel
 ``raytracer_tpu/ops/pallas/wavefront_bwd.py`` ``render_grad_pallas`` /
-``_make_bwd_kernel``: the adjoint of K1's path trace.  K5s is the same
-kernel with ``tri_stream``: K2's two-level walk over the leaf-aligned
-table, winners still the packed columns.  Per pixel and sample
-it re-traces the path storing 22 residual planes per bounce, then sweeps
-the bounces in reverse propagating the image cotangent by hand (implicit
-``dt`` for spheres, direct ``dt`` for triangles under either plane sign,
-the normalize, diffuse, metal, dielectric and sky adjoints, and the camera
-adjoint).  It writes, per bounce and lane, the winner's id and 9 gradients
-(a "slab"), and per lane the 12 camera cotangents summed over the samples.
+``_make_bwd_kernel``: the adjoint of K1's path trace.  K5s is the kernel of
+``tri_stream``: K2's two-level walk over the leaf-aligned table (with K2's
+optional ``sub_bounds``), winners still the packed columns, in K2's thread
+layout (one thread per (pixel, sample), persistent warps, warp-staged
+sub-leaves).  Per pixel and sample it re-traces the path storing 22
+residual planes per bounce, then sweeps the bounces in reverse propagating
+the image cotangent by hand (implicit ``dt`` for spheres, direct ``dt``
+for triangles under either plane sign, the normalize, diffuse, metal,
+dielectric and sky adjoints, and the camera adjoint).  It writes, per
+bounce and lane, the winner's id and 9 gradients (a "slab"), and per pixel
+the 12 camera cotangents summed over the samples in sample order (K5s sums
+its (pixel, sample) lanes so: ``wavefront_stream.pixel_sum_ref``).
 
 ``render_grad_ref`` is the plain PyTorch version: vectorised over lanes,
 a list of per-bounce residual tensors and a reversed loop, in the kernel's
@@ -106,7 +109,7 @@ def render_grad_cuda(sph, tri, g_image, cam_vec, *, width, height,
                      samples_per_pixel, depth, seed=0,
                      parity_plane_sign=True, tri_clusters=None,
                      shard_rows=None, row_offset=0, row_stride=1,
-                     tri_stream=None, n_tris_packed=None):
+                     tri_stream=None, sub_bounds=None, n_tris_packed=None):
     """(dsph, dtri, dcam) through K5, or K5s with ``tri_stream`` (the plain
     version for CPU tensors)."""
     slab, cam_lanes = grad_slab_cuda(
@@ -114,7 +117,8 @@ def render_grad_cuda(sph, tri, g_image, cam_vec, *, width, height,
         samples_per_pixel=samples_per_pixel, depth=depth, seed=seed,
         parity_plane_sign=parity_plane_sign, tri_clusters=tri_clusters,
         shard_rows=shard_rows, row_offset=row_offset, row_stride=row_stride,
-        tri_stream=tri_stream, n_tris_packed=n_tris_packed)
+        tri_stream=tri_stream, sub_bounds=sub_bounds,
+        n_tris_packed=n_tris_packed)
     return reduce_slab(slab, cam_lanes, sph.shape[1],
                        tri.shape[1] if tri_stream is None else n_tris_packed)
 
@@ -123,7 +127,7 @@ def render_grad_ref(sph, tri, g_image, cam_vec, *, width, height,
                     samples_per_pixel, depth, seed=0,
                     parity_plane_sign=True, tri_clusters=None,
                     shard_rows=None, row_offset=0, row_stride=1,
-                    tri_stream=None, n_tris_packed=None):
+                    tri_stream=None, sub_bounds=None, n_tris_packed=None):
     """K5's (K5s's) plain PyTorch version: same arguments and results as
     ``render_grad_cuda``, on whatever device the tensors are."""
     slab, cam_lanes = grad_slab_ref(
@@ -131,7 +135,8 @@ def render_grad_ref(sph, tri, g_image, cam_vec, *, width, height,
         samples_per_pixel=samples_per_pixel, depth=depth, seed=seed,
         parity_plane_sign=parity_plane_sign, tri_clusters=tri_clusters,
         shard_rows=shard_rows, row_offset=row_offset, row_stride=row_stride,
-        tri_stream=tri_stream, n_tris_packed=n_tris_packed)
+        tri_stream=tri_stream, sub_bounds=sub_bounds,
+        n_tris_packed=n_tris_packed)
     return reduce_slab(slab, cam_lanes, sph.shape[1],
                        tri.shape[1] if tri_stream is None else n_tris_packed)
 
@@ -139,7 +144,8 @@ def render_grad_ref(sph, tri, g_image, cam_vec, *, width, height,
 def grad_slab_cuda(sph, tri, g_image, cam_vec, *, width, height,
                    samples_per_pixel, depth, seed=0, parity_plane_sign=True,
                    tri_clusters=None, shard_rows=None, row_offset=0,
-                   row_stride=1, tri_stream=None, n_tris_packed=None):
+                   row_stride=1, tri_stream=None, sub_bounds=None,
+                   n_tris_packed=None):
     """K5 (K5s) itself: (slab [spp, depth, GRAD_PLANES, shard_rows, W] f32,
     cam_lanes [12, shard_rows, W] f32).  Dead lanes have winner id -1."""
     global LAUNCHES, STREAM_LAUNCHES
@@ -147,7 +153,8 @@ def grad_slab_cuda(sph, tri, g_image, cam_vec, *, width, height,
               samples_per_pixel=samples_per_pixel, depth=depth,
               parity_plane_sign=parity_plane_sign, shard_rows=shard_rows,
               row_offset=row_offset, row_stride=row_stride,
-              tri_stream=tri_stream, n_tris_packed=n_tris_packed)
+              tri_stream=tri_stream, sub_bounds=sub_bounds,
+              n_tris_packed=n_tris_packed)
     name = "K5" if tri_stream is None else "K5s"
     if sph.device.type == "cpu":
         return grad_slab_ref(sph, tri, g_image, cam_vec, seed=seed,
@@ -163,26 +170,34 @@ def grad_slab_cuda(sph, tri, g_image, cam_vec, *, width, height,
                         width), dtype=_F32, device=device)
     cam_lanes = torch.empty((12, shard_rows, width), dtype=_F32,
                             device=device)
-    tric_b, tric_r = tri_clusters if tri_clusters is not None else (None,
-                                                                    None)
-    trit_b, trit_r = tri_stream if tri_stream is not None else (None, None)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    with torch.cuda.device(device):
-        rc = lib.rt_wavefront_grad(
-            ptr(sph), sph.shape[1], ptr(tri), tri.shape[1], ptr(cam_vec),
-            ptr(tric_b), ptr(tric_r), 0 if tric_b is None else tric_b.shape[1],
-            ptr(trit_b), ptr(trit_r), 0 if trit_b is None else trit_b.shape[1],
-            ptr(g_image), ptr(slab), ptr(cam_lanes), width, height,
-            rng.seed_word(seed), row_offset, row_stride, shard_rows,
-            samples_per_pixel, depth, wf._inv_spp(samples_per_pixel),
-            int(bool(parity_plane_sign)),
-            torch.cuda.current_stream(device).cuda_stream)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    shape = (width, height, rng.seed_word(seed), row_offset, row_stride,
+             shard_rows, samples_per_pixel, depth,
+             wf._inv_spp(samples_per_pixel))
+    if tri_stream is not None:
+        walk, lay, subs = wf.stream_launch_args(
+            tri, tri_clusters, tri_stream, sub_bounds, width=width,
+            shard_rows=shard_rows, samples_per_pixel=samples_per_pixel)
+        next_tile = torch.zeros((1,), dtype=torch.int32, device=device)
+        with torch.cuda.device(device):
+            rc = lib.rt_wavefront_grad_stream(
+                wf.ptr(sph), sph.shape[1], *walk, wf.ptr(cam_vec),
+                wf.ptr(g_image), wf.ptr(slab), wf.ptr(cam_lanes),
+                wf.ptr(next_tile), *shape, *lay, stream)
+        entry = "rt_wavefront_grad_stream"
+    else:
+        tric_b, tric_r = (tri_clusters if tri_clusters is not None
+                          else (None, None))
+        with torch.cuda.device(device):
+            rc = lib.rt_wavefront_grad(
+                wf.ptr(sph), sph.shape[1], wf.ptr(tri), tri.shape[1],
+                wf.ptr(cam_vec), wf.ptr(tric_b), wf.ptr(tric_r),
+                0 if tric_b is None else tric_b.shape[1], wf.ptr(g_image),
+                wf.ptr(slab), wf.ptr(cam_lanes), *shape,
+                int(bool(parity_plane_sign)), stream)
+        entry = "rt_wavefront_grad"
     if rc != 0:
-        raise RuntimeError(f"{name} (rt_wavefront_grad) launch failed: "
-                           f"cudaError {rc}")
+        raise RuntimeError(f"{name} ({entry}) launch failed: cudaError {rc}")
     if tri_stream is None:
         LAUNCHES += 1
     else:
@@ -682,15 +697,16 @@ def _adjoint_step(res, adj, grads, rx, ry, rz, S, parity_plane_sign):
 def grad_slab_ref(sph, tri, g_image, cam_vec, *, width, height,
                   samples_per_pixel, depth, seed=0, parity_plane_sign=True,
                   tri_clusters=None, shard_rows=None, row_offset=0,
-                  row_stride=1, tri_stream=None, n_tris_packed=None):
+                  row_stride=1, tri_stream=None, sub_bounds=None,
+                  n_tris_packed=None):
     """K5's (K5s's) plain version before the reduction: same results as
-    ``grad_slab_cuda``."""
+    ``grad_slab_cuda`` (sub-leaf boxes only checked, as K2's)."""
     shard_rows = _check_grad_inputs(
         sph, tri, g_image, cam_vec, tri_clusters, width=width,
         height=height, samples_per_pixel=samples_per_pixel, depth=depth,
         parity_plane_sign=parity_plane_sign, shard_rows=shard_rows,
         row_offset=row_offset, row_stride=row_stride, tri_stream=tri_stream,
-        n_tris_packed=n_tris_packed)
+        sub_bounds=sub_bounds, n_tris_packed=n_tris_packed)
     dev = sph.device
     S = sph.shape[1]
     # host columns with the winner id appended (spheres si, triangles S+ti)

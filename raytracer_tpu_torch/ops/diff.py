@@ -27,7 +27,9 @@ Meshes whose packed tables pass the JAX package's table budget
 (``_needs_stream``) take the two-level walk, as the JAX package streams
 them: leaves of 128 triangles, each in a 128-column slot of a leaf-aligned
 table (``tri_stream_table``), tops of 16 leaves (``tri_stream_tops``); K2
-renders and K5s differentiates.  The autograd input stays the PACKED table
+renders and K5s differentiates.  The port's kernels also cull each leaf's
+32-column sub-leaves by their own boxes (``tri_sub_bounds``, from the live
+vertices like the leaf boxes).  The autograd input stays the PACKED table
 and K5s's winners are packed columns, so the cotangent lands on the packed
 columns as with K1 + K5.
 """
@@ -46,7 +48,8 @@ from . import tables
 from .cuda import wavefront, wavefront_bwd
 
 __all__ = ["pack_spheres", "pack_triangles", "TriCull", "build_tri_cull",
-           "tri_cluster_bounds", "tri_stream_table", "tri_stream_tops",
+           "tri_cluster_bounds", "tri_sub_bounds", "tri_stream_table",
+           "tri_stream_tops",
            "walk_tables", "table_bytes", "render_linear_diff", "bwd_kernel_eligible",
            "LEAF_SIZE", "STREAM_LEAF_PAD", "STREAM_ROWS_PAD",
            "STREAM_BUDGET_BYTES"]
@@ -56,6 +59,9 @@ LEAF_SIZE = 64   # triangles per cull leaf of the one-level walk
 # (raytracer_tpu/ops/pallas/wavefront.py:703-705); a leaf of the two-level
 # walk fills one slot, so it holds up to 128 triangles
 STREAM_LEAF_PAD = wavefront.STREAM_LEAF_PAD
+# a two-level leaf's sub-leaves: SUBS boxes of SUB slot columns each
+SUBS = wavefront.LEAF_SUBS
+SUB = STREAM_LEAF_PAD // SUBS
 STREAM_ROWS_PAD = tables.TRI_ROWS_PAD
 # Packed-table bytes past which the differentiable path takes the two-level
 # walk.  This is the JAX package's PALLAS_SMEM_BUDGET_BYTES, a TPU v5e
@@ -142,9 +148,11 @@ class TriCull:
 
     def on(self, device, name: str) -> torch.Tensor:
         """The static index ``name`` as a tensor on ``device``, copied once:
-        ``perm`` and ``ranges`` as stored, ``leaf_ids`` as int64, and the
-        leaf-aligned table's ``src`` columns and ``mask`` (1.0 on filled
-        slot columns) from the column map."""
+        ``perm`` and ``ranges`` as stored, ``leaf_ids`` as int64,
+        ``sub_ids`` (int64: each packed column's sub-leaf, leaf * 4 + its
+        slot column // 32; 4 C for invalid columns), and the leaf-aligned
+        table's ``src`` columns and ``mask`` (1.0 on filled slot columns)
+        from the column map."""
         key = (torch.device(device), name)
         hit = self._on.get(key)
         if hit is None:
@@ -154,6 +162,12 @@ class TriCull:
                        else (colmap >= 0).astype(np.float32))
             elif name == "leaf_ids":
                 arr = self.leaf_ids.astype(np.int64)
+            elif name == "sub_ids":
+                C = self.ranges.shape[1]
+                leaf = self.leaf_ids.astype(np.int64)
+                col = np.arange(len(leaf)) - self.ranges[0][np.minimum(
+                    leaf, C - 1)]
+                arr = np.where(leaf < C, leaf * SUBS + col // SUB, C * SUBS)
             else:
                 arr = getattr(self, name)
             hit = self._on[key] = torch.from_numpy(arr).to(device)
@@ -214,15 +228,12 @@ def build_tri_cull(scene: Scene, leaf_target: int | None = None
     return cull
 
 
-@torch.no_grad()
-def tri_cluster_bounds(scene: Scene, cull: TriCull) -> torch.Tensor:
-    """(6, C) float32 leaf AABBs [lo xyz; hi xyz] from the LIVE vertices,
-    padded like the host clusters; empty leaves get lo > hi.  The bounds
-    only gate work (a piecewise-constant decision), so they carry no
-    gradient."""
+def _boxes(scene: Scene, cull: TriCull, ids: torch.Tensor,
+           n: int) -> torch.Tensor:
+    """(6, n) float32 AABBs [lo xyz; hi xyz] of the LIVE vertices of the
+    packed columns grouped by ``ids`` (n: invalid columns), padded like the
+    host clusters; empty groups get the sentinel lo = +1 > hi = -1."""
     dev = scene.device
-    C = cull.ranges.shape[1]
-    ids = cull.on(dev, "leaf_ids")
     perm = cull.on(dev, "perm")
     v0 = scene.tri_v0.to(torch.float32)[perm]
     v1 = scene.tri_v1.to(torch.float32)[perm]
@@ -232,15 +243,37 @@ def tri_cluster_bounds(scene: Scene, cull: TriCull) -> torch.Tensor:
     vmax = torch.where(valid, torch.maximum(torch.maximum(v0, v1), v2),
                        -1e30)
     idx = ids[:, None].expand(-1, 3)
-    lo = torch.full((C + 1, 3), float("inf"), device=dev).scatter_reduce(
-        0, idx, vmin, "amin")[:C]
-    hi = torch.full((C + 1, 3), float("-inf"), device=dev).scatter_reduce(
-        0, idx, vmax, "amax")[:C]
+    lo = torch.full((n + 1, 3), float("inf"), device=dev).scatter_reduce(
+        0, idx, vmin, "amin")[:n]
+    hi = torch.full((n + 1, 3), float("-inf"), device=dev).scatter_reduce(
+        0, idx, vmax, "amax")[:n]
     pad = 1e-4 + 1e-5 * torch.maximum(lo.abs(), hi.abs())
     empty = (lo[:, 0] > hi[:, 0])[:, None]
     lo_p = torch.where(empty, 1.0, lo - pad)
     hi_p = torch.where(empty, -1.0, hi + pad)
     return torch.cat([lo_p.T, hi_p.T]).to(torch.float32).contiguous()
+
+
+@torch.no_grad()
+def tri_cluster_bounds(scene: Scene, cull: TriCull) -> torch.Tensor:
+    """(6, C) float32 leaf AABBs [lo xyz; hi xyz] from the LIVE vertices,
+    padded like the host clusters; empty leaves get lo > hi.  The bounds
+    only gate work (a piecewise-constant decision), so they carry no
+    gradient."""
+    return _boxes(scene, cull, cull.on(scene.device, "leaf_ids"),
+                  cull.ranges.shape[1])
+
+
+@torch.no_grad()
+def tri_sub_bounds(scene: Scene, cull: TriCull) -> torch.Tensor:
+    """(6, 4 C) float32 AABBs of each leaf's sub-leaves, the columns
+    [32k, 32k + 32) of its slot in the leaf-aligned table (column 4 ci + k),
+    from the LIVE vertices on every call with ``tri_cluster_bounds``'
+    padding and empty sentinel: an optimiser moves the geometry between
+    calls, so boxes built once would be unsound.  K2 and K5s cull by them;
+    no gradient."""
+    return _boxes(scene, cull, cull.on(scene.device, "sub_ids"),
+                  SUBS * cull.ranges.shape[1])
 
 
 def _stream_colmap(cull: TriCull) -> np.ndarray:
@@ -307,9 +340,11 @@ def walk_tables(scene: Scene, cull: TriCull | None,
     ``sph``, ``packed`` (the triangle table, columns in ``cull.perm``
     order; both differentiable), ``clusters`` (leaf bounds and ranges, None
     without a cull), and with ``two_level`` the walk's ``aligned`` table,
-    gathered from the detached packed one, and its ``tops`` (else None)."""
+    gathered from the detached packed one, its ``tops`` and its sub-leaf
+    boxes ``subs`` (``tri_sub_bounds``; else None)."""
     dev = scene.device
-    t = dict(sph=pack_spheres(scene), clusters=None, aligned=None, tops=None)
+    t = dict(sph=pack_spheres(scene), clusters=None, aligned=None, tops=None,
+             subs=None)
     if cull is None:
         t["packed"] = pack_triangles(scene)
         return t
@@ -319,24 +354,24 @@ def walk_tables(scene: Scene, cull: TriCull | None,
     if two_level:
         t["aligned"] = _align(t["packed"].detach(), cull)
         t["tops"] = tri_stream_tops(cull, b)
+        t["subs"] = tri_sub_bounds(scene, cull)
     return t
 
 
 class _KernelRender(torch.autograd.Function):
     """Mean image from the packed tables: K1 forward and K5 backward, or,
     with ``stream`` (the leaf-aligned table gathered from the packed one,
-    and the tops), K2 and K5s."""
+    the tops and the sub-leaf boxes), K2 and K5s."""
 
     @staticmethod
     def forward(ctx, sph, tri, cam_vec, tri_clusters, cfg, stream=None):
-        walk = tri if stream is None else stream[0]
-        tri_stream = None if stream is None else stream[1]
+        walk, tops, subs = (tri, None, None) if stream is None else stream
         mean, _segs = wavefront.render_linear_cuda(
-            sph, walk, cam_vec, tri_clusters=tri_clusters,
-            tri_stream=tri_stream, **cfg)
+            sph, walk, cam_vec, tri_clusters=tri_clusters, tri_stream=tops,
+            sub_bounds=subs, **cfg)
         ctx.save_for_backward(sph, walk, cam_vec)
         ctx.tri_clusters = tri_clusters
-        ctx.tri_stream = tri_stream
+        ctx.stream = dict(tri_stream=tops, sub_bounds=subs)
         ctx.n_tris = tri.shape[1]
         ctx.cfg = cfg
         return mean
@@ -348,8 +383,8 @@ class _KernelRender(torch.autograd.Function):
         # are packed columns, as the JAX _bwd chains them
         dsph, dtri, dcam = wavefront_bwd.render_grad_cuda(
             sph, walk, g.contiguous(), cam_vec,
-            tri_clusters=ctx.tri_clusters, tri_stream=ctx.tri_stream,
-            n_tris_packed=ctx.n_tris, **ctx.cfg)
+            tri_clusters=ctx.tri_clusters, n_tris_packed=ctx.n_tris,
+            **ctx.stream, **ctx.cfg)
         # dsph rows are cx, cy, cz, r, rgb, fuzz, ir; the table's r^2 and
         # kind rows take zero (K5's dr is the total derivative)
         d_table = torch.zeros_like(sph)
@@ -375,7 +410,8 @@ def render_linear_diff(scene: Scene, camera: Camera, *, width: int,
     shard_rows is None), forward and backward."""
     cull = None if parity_plane_sign else tri_cull
     t = walk_tables(scene, cull, cull is not None and _needs_stream(scene))
-    stream = None if t["tops"] is None else (t["aligned"], t["tops"])
+    stream = None if t["tops"] is None else (t["aligned"], t["tops"],
+                                             t["subs"])
     cfg = dict(width=width, height=height,
                samples_per_pixel=samples_per_pixel, depth=depth, seed=seed,
                parity_plane_sign=parity_plane_sign, shard_rows=shard_rows,

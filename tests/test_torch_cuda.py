@@ -205,11 +205,13 @@ def test_k2_matches_plain_version_and_k1_over_the_same_leaves(dev, name):
     kw = dict(GKW, parity_plane_sign=False, tri_clusters=t["clusters"])
     before = (wfc.LAUNCHES, wfc.STREAM_LAUNCHES)
     km, ks = wfc.render_linear_cuda(t["sph"], t["aligned"], t["cam"],
-                                    tri_stream=t["tops"], **kw)
+                                    tri_stream=t["tops"],
+                                    sub_bounds=t["subs"], **kw)
     torch.cuda.synchronize()
     assert (wfc.LAUNCHES, wfc.STREAM_LAUNCHES) == (before[0], before[1] + 1)
     pm, ps = wfc.render_linear_ref(t["sph"], t["aligned"], t["cam"],
-                                   tri_stream=t["tops"], **kw)
+                                   tri_stream=t["tops"],
+                                   sub_bounds=t["subs"], **kw)
     assert torch.isfinite(km).all() and ks == ps
     assert float((km - pm).abs().max()) <= TOL
     one, one_s = wfc.render_linear_cuda(t["sph"], t["packed"], t["cam"], **kw)
@@ -222,7 +224,8 @@ def test_k5s_matches_plain_version_and_k5_over_the_same_leaves(dev, name):
     t = _stream_inputs(name, dev)
     T = t["packed"].shape[1]
     kw = dict(GKW, parity_plane_sign=False, tri_clusters=t["clusters"])
-    skw = dict(kw, tri_stream=t["tops"], n_tris_packed=T)
+    skw = dict(kw, tri_stream=t["tops"], sub_bounds=t["subs"],
+               n_tris_packed=T)
     args = (t["sph"], t["aligned"], t["g"], t["cam"])
     before = (wb.LAUNCHES, wb.STREAM_LAUNCHES)
     kslab, kcam = wb.grad_slab_cuda(*args, **skw)
@@ -239,6 +242,40 @@ def test_k5s_matches_plain_version_and_k5_over_the_same_leaves(dev, name):
     oslab, ocam = wb.grad_slab_cuda(t["sph"], t["packed"], t["g"], t["cam"],
                                     **kw)
     assert torch.equal(kslab, oslab) and torch.equal(kcam, ocam)
+
+
+@pytest.mark.parametrize("case", ["band, 3 spp", "no sub-leaf boxes, 8 spp"])
+def test_k2_k5s_bitwise_k1_k5_on_a_band_and_without_sub_leaf_boxes(dev, case):
+    """K2 and K5s in their (pixel, sample) layout on a strided band at a
+    spp off the run (lanes past spp trace nothing), and with each sub-leaf
+    given its leaf's box: bitwise K1 and K5 over the same leaves (image,
+    segments, slab, camera lanes), and K5s's winners those of its plain
+    version."""
+    from raytracer_tpu_torch.ops.cuda import wavefront_bwd as wb
+    t = _stream_inputs("obj_mesh_scene", dev)
+    T = t["packed"].shape[1]
+    if case.startswith("band"):
+        shape = dict(GKW, samples_per_pixel=3, shard_rows=7, row_offset=2,
+                     row_stride=3)
+        subs = t["subs"]
+    else:
+        shape = dict(GKW, samples_per_pixel=8)
+        subs = None
+    rows = shape.get("shard_rows", shape["height"])
+    g = t["g"][:rows].contiguous()
+    kw = dict(shape, parity_plane_sign=False, tri_clusters=t["clusters"])
+    skw = dict(kw, tri_stream=t["tops"], sub_bounds=subs)
+    km, ks = wfc.render_linear_cuda(t["sph"], t["aligned"], t["cam"], **skw)
+    one, one_s = wfc.render_linear_cuda(t["sph"], t["packed"], t["cam"], **kw)
+    assert km.shape == (rows, shape["width"], 3)
+    assert torch.equal(km, one) and ks == one_s and ks > 0
+    kslab, kcam = wb.grad_slab_cuda(t["sph"], t["aligned"], g, t["cam"],
+                                    n_tris_packed=T, **skw)
+    oslab, ocam = wb.grad_slab_cuda(t["sph"], t["packed"], g, t["cam"], **kw)
+    assert torch.equal(kslab, oslab) and torch.equal(kcam, ocam)
+    pslab, _ = wb.grad_slab_ref(t["sph"], t["aligned"], g, t["cam"],
+                                n_tris_packed=T, **skw)
+    assert torch.equal(kslab[:, :, wb.GP_WIN], pslab[:, :, wb.GP_WIN])
 
 
 def test_streamed_gradient_pass_launches_k2_and_k5s(dev, monkeypatch):

@@ -115,6 +115,68 @@ def test_ragged_top_gets_the_sentinels():
     assert torch.equal(tb[:, 0], torch.cat([lo, hi]))
 
 
+def _sub_boxes_brute_force(scene, cull):
+    """(6, 4 C) float32: numpy boxes of each leaf's 32-column sub-leaves,
+    vertex by vertex, with tri_cluster_bounds' padding; empty sub-leaves
+    (past the leaf's count) get the lo = +1 / hi = -1 sentinel."""
+    h = scene.numpy()
+    verts = np.stack([np.asarray(a, np.float32)
+                      for a in (h.tri_v0, h.tri_v1, h.tri_v2)])
+    C = cull.ranges.shape[1]
+    out = np.empty((6, 4 * C), np.float32)
+    for k in range(C):
+        s, e = cull.ranges[:, k]
+        for j in range(4):
+            mem = cull.perm[s + 32 * j:min(s + 32 * j + 32, e)]
+            if not len(mem):
+                out[:, 4 * k + j] = [1, 1, 1, -1, -1, -1]
+                continue
+            v = verts[:, mem].reshape(-1, 3)
+            lo, hi = v.min(axis=0), v.max(axis=0)
+            pad = np.float32(1e-4) + np.float32(1e-5) * np.maximum(
+                np.abs(lo), np.abs(hi))
+            out[:3, 4 * k + j], out[3:, 4 * k + j] = lo - pad, hi + pad
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_sub_leaf_boxes_match_brute_force(built, name):
+    """tri_sub_bounds against a numpy box per 32-column sub-leaf, bit for
+    bit: full, ragged (a leaf's last, partly filled sub-leaf) and empty
+    sub-leaves; walk_tables carries the same table."""
+    ts, _, tc, _ = built[name]
+    got = tdiff.tri_sub_bounds(ts, tc)
+    assert got.dtype == torch.float32 and got.shape == (6, 4 * tc.ranges.shape[1])
+    want = _sub_boxes_brute_force(ts, tc)
+    np.testing.assert_array_equal(got.numpy(), want)
+    counts = tc.ranges[1] - tc.ranges[0]
+    if name == "mesh_scene(2)":                 # leaves of 41 and 42
+        assert (counts % 32 != 0).all() and (counts < 96).all()
+    with torch.no_grad():
+        t = tdiff.walk_tables(ts, tc, True)
+    assert torch.equal(t["subs"], got)
+    # each sub-leaf box lies inside its leaf's box
+    leaf = tdiff.tri_cluster_bounds(ts, tc).repeat_interleave(4, dim=1)
+    live = (got[0] <= got[3])
+    assert (got[:3, live] >= leaf[:3, live]).all()
+    assert (got[3:, live] <= leaf[3:, live]).all()
+
+
+def test_sub_leaf_boxes_follow_the_live_vertices():
+    """The boxes are recomputed from the vertices on every call: after an
+    optimiser-like move they bound the moved triangles, not the old ones."""
+    scene, _ = rtt.models.mesh_scene(2)
+    cull = tdiff.build_tri_cull(scene)
+    before = tdiff.tri_sub_bounds(scene, cull)
+    shift = torch.from_numpy(np.random.default_rng(1).normal(
+        0.0, 0.05, tuple(scene.tri_v0.shape)).astype(np.float32))
+    moved = tgrad.apply_params(scene, {"tri_v0": scene.tri_v0 + shift})
+    after = tdiff.tri_sub_bounds(moved, cull)
+    assert not torch.equal(before, after)
+    np.testing.assert_array_equal(after.numpy(),
+                                  _sub_boxes_brute_force(moved, cull))
+
+
 # ---------------------------------------------------------------------------
 # the plain versions of K2 and K5s against the JAX streamed kernels
 # ---------------------------------------------------------------------------
@@ -280,8 +342,31 @@ def test_cpu_wrappers_take_the_plain_walk_and_count_nothing():
     assert (twf.STREAM_LAUNCHES, twb.STREAM_LAUNCHES) == before
 
 
+def test_gradient_pass_hands_the_sub_leaf_boxes_to_both_walks(monkeypatch):
+    """render_linear_diff's two-level pass gives K2 and K5s (here their
+    plain versions) walk_tables' sub-leaf boxes."""
+    scene, cam = rtt.models.mesh_scene(3)
+    cull = tdiff.build_tri_cull(scene, 16)
+    monkeypatch.setattr(tdiff, "_needs_stream", lambda s: True)
+    seen = []
+    for mod, fn in ((twf, "render_linear_cuda"), (twb, "render_grad_cuda")):
+        real = getattr(mod, fn)
+        monkeypatch.setattr(mod, fn, lambda *a, real=real, **k: (
+            seen.append(k["sub_bounds"]), real(*a, **k))[1])
+    p = tgrad.extract_params(scene, ["mat_color"])
+    p["mat_color"].requires_grad_(True)
+    s = tgrad.apply_params(scene, p)
+    img = tdiff.render_linear_diff(s, cam, tri_cull=cull, **SHAPE)
+    img.sum().backward()
+    want = tdiff.tri_sub_bounds(scene, cull)
+    assert len(seen) == 2 and all(torch.equal(b, want) for b in seen)
+    assert torch.isfinite(p["mat_color"].grad).all()
+
+
 @pytest.mark.parametrize("bad", ["no_clusters", "slot_width", "no_packed",
-                                 "packed_short", "leaf_too_big"])
+                                 "packed_short", "leaf_too_big",
+                                 "sub_bounds_shape", "top_too_wide",
+                                 "sub_bounds_one_level"])
 def test_bad_stream_inputs_raise(bad):
     scene, cam = rtt.models.mesh_scene(2)
     cull = tdiff.build_tri_cull(scene)
@@ -299,10 +384,31 @@ def test_bad_stream_inputs_raise(bad):
         args["n_tris_packed"] = None
     elif bad == "packed_short":
         args["n_tris_packed"] = 10
-    else:
+    elif bad == "leaf_too_big":
         b, r = t["clusters"]
         r = r.clone()
         r[1, 0] = r[0, 0] + tdiff.STREAM_LEAF_PAD + 1
         args["tri_clusters"] = (b, r)
+    elif bad == "sub_bounds_shape":
+        args["sub_bounds"] = t["subs"][:, :-1].contiguous()
+    elif bad == "top_too_wide":
+        # one top over 17 leaves (the kernels stage a top through a 64-bit
+        # mask of 16 leaves' sub-leaves)
+        scene3 = rtt.models.mesh_scene(3)[0]
+        cull16 = tdiff.build_tri_cull(scene3, 16)
+        t = _port_tables(scene3, cull16)
+        tri = t["aligned"]
+        b, r = t["tops"]
+        r = r.clone()
+        r[1, 0] = 17
+        args = dict(tri_clusters=t["clusters"], tri_stream=(b, r),
+                    n_tris_packed=t["packed"].shape[1])
+    else:
+        args = dict(tri_clusters=t["clusters"], sub_bounds=t["subs"])
+        tri = t["packed"]
     with pytest.raises(ValueError):
         twb.grad_slab_ref(t["sph"], tri, g, cv, **SHAPE, **args)
+    if "packed" not in bad:             # K2 takes no packed column count
+        args.pop("n_tris_packed", None)
+        with pytest.raises(ValueError):
+            twf.render_linear_ref(t["sph"], tri, cv, **SHAPE, **args)
