@@ -16,7 +16,9 @@ if any phase fails:
 
   1. device: a CUDA GPU is required; prints its name and power limit;
   2. build: compiles csrc/*.cu with nvcc (first use) and prints the time
-     and ptxas's registers, stack and spills of every kernel instance;
+     and ptxas's registers, stack and spills of every kernel instance (K1,
+     K1-lowp and K5 one for each plane sign and triangle walk: none, flat,
+     one-level leaves);
   3. K1 vs its plain version on the card, at 64x36, 4 spp, depth 8: the
      default world, the FFI world (triangles), the random sphere field with
      sphere clusters, the icosphere mesh with triangle clusters, and a
@@ -53,7 +55,8 @@ if any phase fails:
      max|diff| <= 1e-5;
   4. the main path: ``cli.main`` at width 512, 64 spp, depth 8, checked
      by the launch counters (one K1 launch per row band, no K5) and
-     against the plain version's framebuffer;
+     against the plain version's framebuffer; K1's 16 bands replayed, with
+     their bound;
   4b. the training path at full width: the bench's gradient configuration
      (default world 256x256, 8 spp, depth 4, target at seed 0, loss at
      seed 1, sphere_center + 0.02, sphere_radius, mat_color), value and
@@ -121,7 +124,10 @@ if any phase fails:
      against their plain versions, with their times and bounds (top, leaf
      and sub-leaf box and triangle tests counted from the plain version's
      rays, and as counted before sub-leaves); the winner reduction, the
-     host glue and the peak device memory of each pass; the walk
+     host glue and the peak device memory of each pass; at OBJ-10k K1
+     held against its plain version with the triangle stage vectorised
+     (all columns at once), the one-level walk's leaf box and triangle
+     tests counted from its rays, and K1's and K5's bounds; the walk
      crossover: the 164k pass one-level in 64-triangle leaves against the
      two-level walk, OBJ-10k one-level against the forced two-level walk
      (K2 and K5s held as at 164k);
@@ -136,7 +142,7 @@ if any phase fails:
      there; K1-lowp vs K1 at the lowp study's frame with both times, the
      plain version's and PSNR against float32.
 
-After the phases a line sums K1's, K5's, K2's and K5s's device time over
+After the phases a line sums each of the eight kernels' device time over
 this run's main-path launches (launches x the time at their shapes; K1's
 16 CLI bands each replayed).  The line before the last is a JSON object
 describing each kernel; the last line is ``{"ok": true, "device":
@@ -148,18 +154,22 @@ measured so until the port has a benchmark): ``python3 chip_smoke.py
 CLI's obj= frame, one launch and 16 bands, the same shape with OBJ-10k's
 own camera, and OBJ-10k 512x288; the (A) and (B) frames with their
 bounces, sorts + gathers, assembly, slots and a hash of each framebuffer),
-K1 at the headline frame, K5 at the default world's gradient pass, and
-the 164k gradient pass with its K2 and K5s (their calls in the pass
-recorded and replayed; hashes of K2's image and K5s's slab and camera
-lanes), for the port in the checkout TREE, with its ptxas figures, using
-only entry points every version of the port has; run it on an older
-checkout (``git archive`` unpacked under ``build/``) and on this one in
-turns, then ``python3 chip_smoke.py --compare-times OUT...`` prints them
-side by side and fails unless every run's outputs are bitwise alike.
-``python3 chip_smoke.py --parts OUT.json`` measures what each part of the
-K4, K6, K2 and K5s designs buys on this checkout (copies of csrc/ built
-with a part switched off: the staged tiles; without sub-leaf bounds;
-K6's live prefix; K5s's register cap).
+K1 at the headline frame and at the CLI's 16 bands (``cli.main``'s own
+calls, each replayed; the bands held bitwise against one whole-frame call,
+the framebuffer hashed), K1-lowp at the lowp study's frame, K1 and K5 at the default world's and OBJ-10k's
+gradient passes, and the 164k gradient pass with its K2 and K5s (their
+calls in each pass recorded and replayed; hashes of every image and its
+segments, slab with zeros as +0, and camera lanes), for the port in the
+checkout TREE, with its ptxas figures, using only entry points every
+version of the port has; run it on an older checkout (``git archive``
+unpacked under ``build/``) and on this one in turns, then ``python3
+chip_smoke.py --compare-times OUT...`` prints them side by side and fails
+unless every run's outputs are bitwise alike.  ``python3 chip_smoke.py
+--parts OUT.json`` measures what each part of the K4, K6, K2, K5s, K1 and
+K5 designs buys on this checkout (copies of csrc/ built with a part
+switched off: the staged tiles; without sub-leaf bounds; K6's live
+prefix; K5s's register cap; K1's and K5's runs of one sample, the
+one-thread-a-pixel layout).
 """
 
 from __future__ import annotations
@@ -228,32 +238,56 @@ def phase_build() -> dict:
 
 
 # the kernel instances whose ptxas figures every run prints: a fragment of
-# each mangled name (template flags PARITY, LOWP; a name's length prefix
-# keeps the fragments apart)
-PTXAS_KERNELS = {"K1": "wavefront_kernelILb0ELb0E",
-                 "K1 parity sign": "wavefront_kernelILb1ELb0E",
-                 "K1-lowp": "wavefront_kernelILb1ELb1E",
-                 "K1-lowp correct sign": "wavefront_kernelILb0ELb1E",
-                 "K2": "16two_level_kernel",
-                 "K3": "binned_pass_kernel",
-                 "K4": "13stream_kernel",
-                 "K5": "wavefront_grad_kernelILb0E",
-                 "K5 parity sign": "wavefront_grad_kernelILb1E",
-                 "K5s": "21two_level_grad_kernel",
-                 "K6 primary": "sorted_bounce_kernelILb1E",
-                 "K6 later bounces": "sorted_bounce_kernelILb0E"}
+# each mangled name (template flags PARITY, LOWP and K1's and K5's triangle
+# walk: 0 none, 1 flat, 2 one-level leaves; a name's length prefix keeps
+# the fragments apart)
+PTXAS_KERNELS = {
+    "K1 spheres only (headline)": "wavefront_kernelILb1ELb0ELi0E",
+    "K1 spheres only, correct sign": "wavefront_kernelILb0ELb0ELi0E",
+    "K1 flat triangles": "wavefront_kernelILb0ELb0ELi1E",
+    "K1 flat triangles, parity sign": "wavefront_kernelILb1ELb0ELi1E",
+    "K1 leaves": "wavefront_kernelILb0ELb0ELi2E",
+    "K1-lowp spheres only (study)": "wavefront_kernelILb1ELb1ELi0E",
+    "K1-lowp spheres only, correct sign": "wavefront_kernelILb0ELb1ELi0E",
+    "K1-lowp flat triangles": "wavefront_kernelILb0ELb1ELi1E",
+    "K1-lowp flat triangles, parity sign": "wavefront_kernelILb1ELb1ELi1E",
+    "K1-lowp leaves": "wavefront_kernelILb0ELb1ELi2E",
+    "K2": "16two_level_kernel",
+    "K3": "binned_pass_kernel",
+    "K4": "13stream_kernel",
+    "K5 spheres only (default-world pass)": "wavefront_grad_kernelILb1ELi0E",
+    "K5 spheres only, correct sign": "wavefront_grad_kernelILb0ELi0E",
+    "K5 flat triangles": "wavefront_grad_kernelILb0ELi1E",
+    "K5 flat triangles, parity sign": "wavefront_grad_kernelILb1ELi1E",
+    "K5 leaves (OBJ-10k pass)": "wavefront_grad_kernelILb0ELi2E",
+    "K5s": "21two_level_grad_kernel",
+    "K6 primary": "sorted_bounce_kernelILb1E",
+    "K6 later bounces": "sorted_bounce_kernelILb0E"}
+# the instances of the one-thread-a-pixel K1 and K5 (before their walk was
+# a template flag), which ``--times`` reports for an older checkout
+PTXAS_PER_PIXEL = {"K1 (per pixel)": "wavefront_kernelILb0ELb0EE",
+                   "K1 parity sign (per pixel)": "wavefront_kernelILb1ELb0EE",
+                   "K1-lowp (per pixel)": "wavefront_kernelILb1ELb1EE",
+                   "K1-lowp correct sign (per pixel)":
+                       "wavefront_kernelILb0ELb1EE",
+                   "K5 (per pixel)": "wavefront_grad_kernelILb0EE",
+                   "K5 parity sign (per pixel)":
+                       "wavefront_grad_kernelILb1EE"}
 
 
 def ptxas_report(path, required=True) -> dict:
     """{kernel: (registers, stack bytes, spill store bytes)} from a
     ``-Xptxas -v`` log, printed; with ``required`` every instance of
-    PTXAS_KERNELS must be there (an older checkout's build may lack some:
-    K2 and K5s were once launches of K1's and K5's kernels)."""
+    PTXAS_KERNELS must be there, else the instances of an older checkout's
+    build are reported too (K2 and K5s were once launches of K1's and K5's
+    kernels, which had no walk flag)."""
     import re
     lines = Path(path).read_text().splitlines() if Path(path).exists() \
         else []
     out = {}
-    for name, frag in PTXAS_KERNELS.items():
+    names = PTXAS_KERNELS if required else {**PTXAS_KERNELS,
+                                            **PTXAS_PER_PIXEL}
+    for name, frag in names.items():
         for i, line in enumerate(lines):
             if "Compiling entry" in line and frag in line:
                 block = " ".join(lines[i:i + 4])
@@ -388,10 +422,17 @@ def phase_main_path(rtt) -> int:
     if lsb > 1:
         raise SystemExit(f"main path: framebuffer off by {lsb} LSB")
     band_ms = bands.replay_ms(runs=5)
+    # the bound of each band: the spheres' tests and the shading of its
+    # segments (the default world: spheres only), its tables and image
+    n_sph = scene.num_spheres
+    per = [bound(segs * (n_sph * FLOPS_SPHERE + FLOPS_SHADE),
+                 nbytes(*a[:3], mean)) for a, _, (mean, segs) in bands.calls]
+    b = sum(x[0] for x in per)
     log(f"  K1 over the CLI's 16 bands (each band's call replayed, CUDA "
         f"events): {sum(band_ms):.3f} ms, {min(band_ms):.3f} to "
-        f"{max(band_ms):.3f} ms a band")
-    return launches, sum(band_ms)
+        f"{max(band_ms):.3f} ms a band; bound {b:.4f} ms by "
+        f"{per[0][1]} ({100 * b / sum(band_ms):.2f}%)")
+    return launches, sum(band_ms), (b, per[0][1])
 
 
 def _median_seconds(fn, runs=5):
@@ -1300,21 +1341,9 @@ class _Recorder:
         setattr(self.module, self.name, self.real)
 
     def replay_ms(self, runs=10):
-        """Each recorded call's device time: CUDA events around ``runs``
-        back-to-back calls on its own inputs, so host time hides behind
-        the queue."""
-        out = []
-        for a, k, _ in self.calls:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            self.real(*a, **k)
-            start.record()
-            for _ in range(runs):
-                self.real(*a, **k)
-            end.record()
-            end.synchronize()
-            out.append(start.elapsed_time(end) / runs)
-        return out
+        """Each recorded call's device time on its own inputs
+        (``_replay_ms``)."""
+        return [_replay_ms(self.real, a, k, runs) for a, k, _ in self.calls]
 
 
 def _live_bytes(calls, module):
@@ -1659,7 +1688,30 @@ def _k2_levels(t, subs):
     return levels, sub_n
 
 
-def _stream_kernels(scene, cam, label, start, shape, target):
+def _one_level_plain(t, cv, kw):
+    """K1's plain version over the packed table ``t`` with its triangle
+    stage taken all columns at once (``wavefront.tri_block_hits``: the
+    least t, ties to the last column, as the walk's visit order takes
+    them; culling changes no hit): the one-level walk's image and hits at a
+    gradient pass's full size, where the per-column loop of
+    ``render_linear_ref`` would take minutes."""
+    from raytracer_tpu_torch.ops.cuda import wavefront as wfc
+    tri = t["packed"]
+    cols = torch.arange(tri.shape[1], device=tri.device)
+
+    def stage(ray, h, alive, _b):
+        sel = alive.nonzero()[:, 0]
+        if sel.numel():
+            rank = torch.full_like(alive, -1, dtype=torch.int64)
+            wfc.tri_block_hits(tri, cols, ray, h, rank, 0, sel)
+    return wfc.trace_pixels_ref(
+        t["sph"], cv, stage, width=kw["width"], height=kw["height"],
+        samples_per_pixel=kw["samples_per_pixel"], depth=kw["depth"],
+        seed=kw["seed"], sph_clusters=None, shard_rows=kw["height"],
+        row_offset=0, row_stride=1)
+
+
+def _stream_kernels(scene, cam, label, start, shape, target, plain=False):
     """The forward and backward kernels of ``label``'s pass alone, at the
     pass's own topology, tables and image cotangent: event times, the
     reduction and the host glue (the tables the pass builds on each call);
@@ -1667,7 +1719,10 @@ def _stream_kernels(scene, cam, label, start, shape, target):
     packed table and the same leaves (image, segments, slab with its winner
     ids, camera lanes) and against their plain versions, with the plain
     versions' times, the walk's operations (with sub-leaves, and as counted
-    before them) and the bounds."""
+    before them) and the bounds; on the one-level walk with ``plain`` K1
+    held against ``_one_level_plain``, and the walk's operations (leaf box
+    and triangle tests, in K1's (pixel, sample) warps and in 8x4-pixel
+    warps) and K1's and K5's bounds."""
     from raytracer_tpu_torch import grad
     from raytracer_tpu_torch.ops import diff, tables
     from raytracer_tpu_torch.ops.cuda import wavefront as wfc
@@ -1707,6 +1762,9 @@ def _stream_kernels(scene, cam, label, start, shape, target):
         f"{', tops, sub-leaf boxes, aligned table' if two else ''}) "
         f"{glue_ms:.3f} ms")
     if not two:
+        if plain:
+            out.update(_one_level_bounds(t, cv, one_kw, img, kseg, g, slab,
+                                         cam_l, f_ms, b_ms, label))
         return out
     k1 = wfc.render_linear_cuda(t["sph"], t["packed"], cv, **one_kw)
     k5 = wb.grad_slab_cuda(t["sph"], t["packed"], g, cv, **one_kw)
@@ -1752,6 +1810,40 @@ def _stream_kernels(scene, cam, label, start, shape, target):
     out.update(k2_plain_ms=p2_ms, k5s_plain_ms=p5_ms, k2_bound=b2,
                k5s_bound=b5)
     return out
+
+
+def _one_level_bounds(t, cv, kw, img, kseg, g, slab, cam_l, f_ms, b_ms,
+                      label) -> dict:
+    """K1 against ``_one_level_plain`` at a pass's shape (bitwise but for
+    exact triangle ties), and K1's and K5's bounds there: the spheres' tests
+    and shading of each segment, and the leaf box and triangle tests of
+    each live ray's own one-level walk (``_walk_ops``)."""
+    from raytracer_tpu_torch.ops.cuda import wavefront as wfc
+    with _Recorder(wfc, "sphere_hits") as hits, \
+            _Recorder(wfc, "scatter_bookkeep") as shades:
+        p_ms, p1 = _sync_ms(lambda: _one_level_plain(t, cv, kw))
+    err = compare_image(f"K1 vs plain at {label}", (img, kseg), p1)
+    leafb, leafr = t["clusters"]
+    levels = [(_box_test(leafb), None, FLOPS_BOX)]
+    counts = leafr[1] - leafr[0]
+    W, H, spp = kw["width"], kw["height"], kw["samples_per_pixel"]
+    walk, warp = _layout_walk_ops(shades.calls, levels, counts, W, H, spp)
+    _, warp_old = _pixel_walk_ops(hits.calls, levels, counts, W)
+    del hits, shades
+    S = t["sph"].shape[1]
+    shading = kseg * (S * FLOPS_SPHERE + FLOPS_SHADE)
+    tab = (t["sph"], t["packed"], t["clusters"], cv)
+    b1 = bound(shading + walk, nbytes(*tab, img))
+    b5 = bound(kseg * FLOPS_ADJOINT + 2 * shading + walk,
+               nbytes(*tab, g, slab, cam_l))
+    log(f"  {label}: plain version (triangles all columns at once) "
+        f"{p_ms:.3f} ms; the walk {walk:.6e} operations of the rays' own "
+        f"leaf box and triangle tests (the (pixel, sample) warps execute "
+        f"{warp:.6e}, {warp / walk:.2f}x; 8x4-pixel warps "
+        f"{warp_old / walk:.2f}x); bounds K1 {b1[0]:.4f} ms by {b1[1]} "
+        f"({100 * b1[0] / f_ms:.2f}% of its time), K5 {b5[0]:.4f} ms by "
+        f"{b5[1]} ({100 * b5[0] / b_ms:.2f}%)")
+    return dict(k1_err=err, k1_plain_ms=p_ms, k1_bound=b1, k5_bound=b5)
 
 
 def _profile_pass(label, fn) -> None:
@@ -1822,7 +1914,7 @@ def phase_mesh_grad_throughput(rtt, smi, scenes) -> dict:
         _profile_pass(label, lambda: _value_and_grad(loss_fn, start))
         out[label] = dict(paths_per_s=paths / sec, ms=sec * 1e3, peak=peak,
                           **_stream_kernels(scene, cam, label, start, shape,
-                                            target))
+                                            target, plain=True))
         rest = sec * 1e3 - sum(out[label][k] for k in ("fwd_ms", "bwd_ms",
                                                         "red_ms"))
         log(f"  {label}: the pass outside its two kernels and the reduction "
@@ -2264,10 +2356,93 @@ def _sha(t) -> str:
 
 def _pass_kernels(loss_fn, start, runs=10):
     """One value and gradient of ``loss_fn`` at ``start`` with its forward
-    and backward kernel calls recorded (``render_linear_cuda``,
-    ``grad_slab_cuda``: entry points every version of the port has): each
-    call's device time replayed on its own inputs (CUDA events), and the
-    calls with their outputs."""
+    and backward kernel calls recorded (``_pass_calls``): each call's device
+    time replayed on its own inputs (CUDA events), and the calls (args,
+    kwargs, outputs)."""
+    calls = _pass_calls(loss_fn, start)
+    with torch.no_grad():
+        return (*(_replay_ms(fn, a, k, runs) for fn, a, k, _ in calls),
+                *(c[1:] for c in calls))
+
+
+def _replay_ms(fn, a, k, runs=10):
+    """Device time of ``fn(*a, **k)``: CUDA events around ``runs``
+    back-to-back calls after one more, so host time hides behind the
+    queue."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    fn(*a, **k)
+    start.record()
+    for _ in range(runs):
+        fn(*a, **k)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / runs
+
+
+def k1_k5_calls(rtt) -> dict:
+    """The main path's K1 and K5 calls, recorded through entry points every
+    version of the port has (``cli.main``, ``render_linear_cuda``,
+    ``grad_slab_cuda``): {"headline": [K1], "lowp study": [K1-lowp],
+    "CLI bands": 16 x [K1], "default-world pass": [K1, K5], "OBJ-10k
+    pass": [K1, K5]}, each call
+    (function, args, kwargs, outputs); with "fb" the CLI framebuffer's
+    sha256 and "obj10k" the OBJ-10k pass's median time.  The CLI's bands
+    are held bitwise against the rows of one whole-frame call."""
+    from raytracer_tpu_torch import cli, ops
+    from raytracer_tpu_torch.ops import tables
+    from raytracer_tpu_torch.ops.cuda import wavefront as wfc
+    from raytracer_tpu_torch.ops.cuda import wavefront_bwd as wb
+    dev = torch.device("cuda")
+    out = {}
+    w = rtt.models.default_world()
+    scene, cam = w.to_scene(), w.to_camera()
+    sph, tri, scl, tcl = ops.scene_tables(scene, True, dev)
+    cv = tables.camera_vec(cam).to(dev)
+    kw = dict(width=512, height=512, samples_per_pixel=64, depth=8, seed=1,
+              parity_plane_sign=True, sph_clusters=scl, tri_clusters=tcl)
+    out["headline"] = [(wfc.render_linear_cuda, (sph, tri, cv), kw,
+                        wfc.render_linear_cuda(sph, tri, cv, **kw))]
+    args, _ = _lowp_args(w, dev)
+    kw = dict(LOWP_FULL, seed=1, parity_plane_sign=True, lowp=True)
+    out["lowp study"] = [(wfc.render_linear_cuda, args, kw,
+                          wfc.render_linear_cuda(*args, **kw))]
+    with tempfile.TemporaryDirectory() as tmp:
+        ppm = Path(tmp) / "image.ppm"
+        with _Recorder(wfc, "render_linear_cuda") as bands:
+            rc = cli.main(["samples=64", "ray_depth=8", "width=512",
+                           f"out={ppm}"])
+        out["fb"] = hashlib.sha256(ppm.read_bytes()).hexdigest()
+    if rc != 0 or len(bands.calls) != 16:
+        raise SystemExit(f"the CLI: rc {rc}, {len(bands.calls)} K1 calls")
+    out["CLI bands"] = [(bands.real, a, k, o) for a, k, o in bands.calls]
+    a, k, _ = bands.calls[0]
+    whole = dict(k)
+    del whole["shard_rows"], whole["row_offset"]
+    mean, segs = bands.real(*a, **whole)
+    for _, _, k, (m, _) in out["CLI bands"]:
+        r0, n = k["row_offset"], min(k["shard_rows"], k["height"] - k[
+            "row_offset"])
+        if not torch.equal(m[:n], mean[r0:r0 + n]):
+            raise SystemExit(f"the CLI band at row {r0} is not the whole "
+                             f"frame's rows")
+    if sum(o[1] for _, _, _, o in out["CLI bands"]) != segs:
+        raise SystemExit("the CLI bands' segments are not the whole "
+                         "frame's")
+    _, _, _, loss_fn, start = _bench_grad(rtt)
+    out["default-world pass"] = _pass_calls(loss_fn, start)
+    scene, cam = (x.to(dev) for x in rtt.models.obj_mesh_scene())
+    loss_fn, start, shape, _ = _mesh_grad_setup(rtt, scene, cam, "OBJ-10k")
+    sec, _ = _median_seconds(lambda _: _value_and_grad(loss_fn, start))
+    out["obj10k"] = dict(pass_ms=sec * 1e3, paths_per_s=shape["width"]
+                         * shape["height"] * shape["samples_per_pixel"]
+                         / sec)
+    out["OBJ-10k pass"] = _pass_calls(loss_fn, start)
+    return out
+
+
+def _pass_calls(loss_fn, start):
+    """One value and gradient's forward and backward kernel calls."""
     from raytracer_tpu_torch.ops.cuda import wavefront as wfc
     from raytracer_tpu_torch.ops.cuda import wavefront_bwd as wb
     with _Recorder(wfc, "render_linear_cuda") as fwd, \
@@ -2277,43 +2452,65 @@ def _pass_kernels(loss_fn, start, runs=10):
     if len(fwd.calls) != 1 or len(bwd.calls) != 1:
         raise SystemExit(f"a gradient pass made {len(fwd.calls)} forward "
                          f"and {len(bwd.calls)} backward kernel calls")
-    with torch.no_grad():
-        return fwd.replay_ms(runs)[0], bwd.replay_ms(runs)[0], \
-            fwd.calls[0], bwd.calls[0]
+    return [(fwd.real, *fwd.calls[0]), (bwd.real, *bwd.calls[0])]
+
+
+def _digest(outs) -> dict:
+    """Hashes of K1's (image, segments) and K5's (slab with its zeros as
+    +0, camera lanes) outputs; ``slab_raw`` the slab's own bytes."""
+    if len(outs) == 2 and isinstance(outs[1], int):
+        return dict(img=_sha(outs[0]), segs=outs[1])
+    return dict(slab=_sha(outs[0] + 0.0), slab_raw=_sha(outs[0]),
+                cam=_sha(outs[1]))
+
+
+# the shapes of k1_k5_calls
+K1_K5_SHAPES = ("headline", "lowp study", "CLI bands", "default-world pass",
+                "OBJ-10k pass")
+
+
+def time_k1_k5(calls, runs=10) -> dict:
+    """Each recorded K1 / K5 call of ``k1_k5_calls`` replayed (device ms)
+    and its outputs recomputed and hashed: {shape: {"ms": [...],
+    "digest": [...]}}; the CLI bands' digest is of all 16 bands' images
+    and their segments."""
+    out = {}
+    for name in K1_K5_SHAPES:
+        ms, digest = [], []
+        for fn, a, k, _ in calls[name]:
+            ms.append(_replay_ms(fn, a, k, runs))
+            digest.append(_digest(fn(*a, **k)))
+        if name == "CLI bands":
+            digest = [dict(img=hashlib.sha256("".join(
+                d["img"] for d in digest).encode()).hexdigest(),
+                segs=sum(d["segs"] for d in digest))]
+        out[name] = dict(ms=ms, digest=digest)
+    return out
 
 
 def measure_grad_times(rtt) -> dict:
-    """K1 at the headline frame, K5 at the default world's gradient pass,
-    and the 164k gradient pass with its K2 and K5s, for ``--times``: the
-    headline frame's and K2's images, K5s's slab and camera lanes hashed.
-    The slab is hashed with its zeros as +0 (``slab_hash``; the raw bytes
-    in ``slab_raw_hash``): a lane dead at a bounce writes 0 x its stale
+    """K1 at the headline frame and the CLI's 16 bands, K1-lowp at its study
+    frame, K1 and K5 at the default world's and OBJ-10k's gradient passes, and the 164k gradient
+    pass with its K2 and K5s, for ``--times``: their calls recorded and
+    replayed, their outputs hashed (the slabs with their zeros as +0; the
+    raw bytes in ``slab_raw``: a lane dead at a bounce writes 0 x its stale
     hit's gradients, whose sign of zero follows whichever hit its warp's
-    walk left it, and no reader of the slab tells -0 from +0."""
-    from raytracer_tpu_torch import ops
-    from raytracer_tpu_torch.ops import tables
-    from raytracer_tpu_torch.ops.cuda import wavefront as wfc
+    walk left it, and no reader of the slab tells -0 from +0), the CLI's
+    framebuffer hashed."""
     dev = torch.device("cuda")
-    out = {}
-    w = rtt.models.default_world()
-    scene, cam = w.to_scene(), w.to_camera()
-    head = dict(width=512, height=512, samples_per_pixel=64, depth=8)
-    mean, segs = ops.render_linear_fast(scene, cam, device=dev, seed=1,
-                                        **head)
-    sph, tri, scl, tcl = ops.scene_tables(scene, True, dev)
-    cv = tables.camera_vec(cam).to(dev)
-    kw = dict(head, seed=1, parity_plane_sign=True, sph_clusters=scl,
-              tri_clusters=tcl)
-    k1_ms = _event_ms(lambda: wfc.render_linear_cuda(sph, tri, cv, **kw))
-    out["k1"] = dict(ms=k1_ms, segs=segs, hash=_sha(mean))
-    _, _, _, loss_fn, start = _bench_grad(rtt)
-    _, k5_ms, _, (_, _, (slab, cam_l)) = _pass_kernels(loss_fn, start)
-    out["k5"] = dict(ms=k5_ms, slab_hash=_sha(slab + 0.0),
-                     cam_hash=_sha(cam_l))
-    log(f"  K1 headline frame {k1_ms:.3f} ms (framebuffer sha256 "
-        f"{out['k1']['hash'][:16]}); K5 at the default world's pass "
-        f"{k5_ms:.3f} ms")
-    del mean, slab, cam_l
+    calls = k1_k5_calls(rtt)
+    out = dict(k1k5=time_k1_k5(calls), fb=calls["fb"], obj10k=calls["obj10k"])
+    t = out["k1k5"]
+    log(f"  K1 headline {t['headline']['ms'][0]:.3f} ms; K1-lowp at its "
+        f"study frame {t['lowp study']['ms'][0]:.3f} ms; CLI 16 bands "
+        f"{sum(t['CLI bands']['ms']):.3f} ms; default-world pass K1 "
+        f"{t['default-world pass']['ms'][0]:.3f} ms, K5 "
+        f"{t['default-world pass']['ms'][1]:.3f} ms; OBJ-10k pass "
+        f"{calls['obj10k']['pass_ms']:.3f} ms "
+        f"({calls['obj10k']['paths_per_s']:.6e} paths/s), K1 "
+        f"{t['OBJ-10k pass']['ms'][0]:.3f} ms, K5 "
+        f"{t['OBJ-10k pass']['ms'][1]:.3f} ms")
+    del calls
     scene, cam = (x.to(dev) for x in big_mesh_scene(rtt))
     loss_fn, start, shape, _ = _mesh_grad_setup(rtt, scene, cam, "164k")
     sec, _ = _median_seconds(lambda _: _value_and_grad(loss_fn, start))
@@ -2503,6 +2700,46 @@ def measure_parts_k2(rtt, libs) -> dict:
     return out
 
 
+def measure_parts_k1(rtt, libs) -> dict:
+    """What the (pixel, sample) layout and the staged chunks buy K1 and K5
+    on the main path's calls (``k1_k5_calls``, replayed): as shipped,
+    without staging (UNSTAGED_PATCHES: the one-level walk reads the table),
+    with one thread a pixel (thread_layout's runs capped at one sample: the
+    parent's 8x4-pixel warps, each thread looping its samples, on
+    persistent warps), and with neither; every output bitwise alike across
+    the variants (the slabs with their zeros as +0)."""
+    from raytracer_tpu_torch.ops.cuda import build
+    from raytracer_tpu_torch.ops.cuda import wavefront_stream as ws
+    calls = k1_k5_calls(rtt)
+    real_load, real_run = build.load, ws.MAX_RUN
+    out, digests = {}, set()
+    log("\nK1 and K5 parts at the main path's calls")
+    try:
+        for (tiles, lib), run in [(x, r) for x in libs[:2]
+                                  for r in (real_run, 1)]:
+            build.load = lambda csrc=None, lib=lib: lib
+            ws.MAX_RUN = run
+            t = time_k1_k5(calls, runs=5)
+            key = (f"{tiles}, " + ("(pixel, sample) runs" if run > 1
+                                   else "one thread a pixel"))
+            out[key] = {n: v["ms"] for n, v in t.items()}
+            digests.add(json.dumps(
+                {n: [{f: x for f, x in d.items() if f != "slab_raw"}
+                     for d in v["digest"]] for n, v in t.items()},
+                sort_keys=True))
+            log(f"  {key}: " + "; ".join(
+                f"{n} {' + '.join(f'{x:.3f}' for x in v['ms'])} ms"
+                if n != "CLI bands" else
+                f"{n} {sum(v['ms']):.3f} ms" for n, v in t.items()))
+    finally:
+        build.load, ws.MAX_RUN = real_load, real_run
+    log(f"  images, segments, slabs and camera lanes bitwise alike across "
+        f"the variants: {len(digests) == 1}")
+    if len(digests) != 1:
+        raise SystemExit("the K1 / K5 design-part variants differ")
+    return out
+
+
 def measure_parts(rtt, smi, staged, unstaged) -> dict:
     """What each part of the K4 and K6 designs buys, on this checkout: K4
     at the CLI's obj= frame (one launch, 16 bands) and at OBJ-10k 512x288
@@ -2590,8 +2827,8 @@ def measure_parts(rtt, smi, staged, unstaged) -> dict:
 
 
 def parts_main(path) -> int:
-    """``--parts OUT``: measure_parts and measure_parts_k2 on this checkout,
-    as JSON in OUT."""
+    """``--parts OUT``: measure_parts, measure_parts_k2 and
+    measure_parts_k1 on this checkout, as JSON in OUT."""
     from raytracer_tpu_torch.ops.cuda import build
     smi = phase_device()
     rtt = import_port()
@@ -2604,6 +2841,7 @@ def parts_main(path) -> int:
         libs.append((f"staged, K5s at {n} blocks an SM", lib))
     out = measure_parts(rtt, smi, libs[0][1], libs[1][1])
     out["k2"] = measure_parts_k2(rtt, libs)
+    out["k1"] = measure_parts_k1(rtt, libs)
     Path(path).write_text(json.dumps(out))
     return 0
 
@@ -2628,9 +2866,10 @@ def times_main(tree, path) -> int:
 
 def compare_times_main(paths) -> int:
     """``--compare-times OLD NEW ...``: the runs' times side by side; fails
-    unless every run's (A), (B), CLI and headline frames, the 164k pass's
-    image, slab (zeros as +0) and camera lanes and the default world's
-    slab and camera lanes hash alike and their segments agree."""
+    unless every run's (A), (B), CLI obj= and CLI framebuffers, K1's
+    images and segments at the headline, the CLI's 16 bands and the two
+    passes, K1-lowp's at its study frame, K5's slabs (zeros as +0) and camera lanes there, and the 164k
+    pass's image, segments, slab and camera lanes hash alike."""
     runs = [json.loads(Path(p).read_text()) for p in paths]
     for p, r in zip(paths, runs):
         k4 = r["k4"]
@@ -2649,20 +2888,44 @@ def compare_times_main(paths) -> int:
                 f"{x['assembly_ms']:.3f} ms; (slots, live) {x['slots']}; "
                 f"peak {x['peak'] / 2**30:.3f} GiB")
     for p, r in zip(paths, runs):
-        k = r["164k"]
-        log(f"{p}: K1 headline {r['k1']['ms']:.3f} ms; K5 default world "
-            f"{r['k5']['ms']:.3f} ms; 164k pass {k['pass_ms']:.3f} ms "
-            f"({k['paths_per_s']:.6e} paths/s), K2 {k['k2_ms']:.3f} ms, K5s "
-            f"{k['k5s_ms']:.3f} ms")
-    raw = {r["164k"]["slab_raw_hash"] for r in runs}
-    log(f"  164k slab raw bytes: "
-        f"{'equal in every run' if len(raw) == 1 else f'{len(raw)} hashes'}")
-    for key in (("A", "hash"), ("A", "segs"), ("B", "hash"), ("B", "segs"),
-                ("k4", "cli_hash"), ("k4", "cli_segs"), ("k1", "hash"),
-                ("k1", "segs"), ("k5", "slab_hash"), ("k5", "cam_hash"),
-                ("164k", "img_hash"), ("164k", "segs"),
-                ("164k", "slab_hash"), ("164k", "cam_hash")):
-        vals = {r[key[0]][key[1]] for r in runs}
+        k, t = r["164k"], r["k1k5"]
+        log(f"{p}: K1 headline {t['headline']['ms'][0]:.3f} ms, K1-lowp "
+            f"{t['lowp study']['ms'][0]:.3f} ms, CLI 16 bands "
+            f"{sum(t['CLI bands']['ms']):.3f} ms; default-world pass K1 "
+            f"{t['default-world pass']['ms'][0]:.3f} ms, K5 "
+            f"{t['default-world pass']['ms'][1]:.3f} ms; OBJ-10k pass "
+            f"{r['obj10k']['pass_ms']:.3f} ms "
+            f"({r['obj10k']['paths_per_s']:.6e} paths/s), K1 "
+            f"{t['OBJ-10k pass']['ms'][0]:.3f} ms, K5 "
+            f"{t['OBJ-10k pass']['ms'][1]:.3f} ms; 164k pass "
+            f"{k['pass_ms']:.3f} ms ({k['paths_per_s']:.6e} paths/s), K2 "
+            f"{k['k2_ms']:.3f} ms, K5s {k['k5s_ms']:.3f} ms")
+    for key in ("164k", "default-world pass", "OBJ-10k pass"):
+        raw = {json.dumps(r["164k"]["slab_raw_hash"] if key == "164k" else
+                          r["k1k5"][key]["digest"][1]["slab_raw"])
+               for r in runs}
+        log(f"  {key} slab raw bytes: "
+            f"{'equal in every run' if len(raw) == 1 else f'{len(raw)} hashes'}")
+    same = [(("A", "hash"), lambda r: r["A"]["hash"]),
+            (("A", "segs"), lambda r: r["A"]["segs"]),
+            (("B", "hash"), lambda r: r["B"]["hash"]),
+            (("B", "segs"), lambda r: r["B"]["segs"]),
+            (("k4", "cli_hash"), lambda r: r["k4"]["cli_hash"]),
+            (("k4", "cli_segs"), lambda r: r["k4"]["cli_segs"]),
+            (("CLI", "framebuffer"), lambda r: r["fb"])]
+    for name in K1_K5_SHAPES:
+        same.append(((name, "K1 image, segments"),
+                     lambda r, n=name: json.dumps(
+                         r["k1k5"][n]["digest"][0], sort_keys=True)))
+    for name in ("default-world pass", "OBJ-10k pass"):
+        same.append(((name, "K5 slab (zeros as +0), camera lanes"),
+                     lambda r, n=name: json.dumps(
+                         {k: v for k, v in r["k1k5"][n]["digest"][1].items()
+                          if k != "slab_raw"}, sort_keys=True)))
+    for f in ("img_hash", "segs", "slab_hash", "cam_hash"):
+        same.append((("164k", f), lambda r, f=f: r["164k"][f]))
+    for key, get in same:
+        vals = {get(r) for r in runs}
         log(f"  {key[0]} {key[1]}: "
             f"{'equal in every run' if len(vals) == 1 else vals}")
         if len(vals) != 1:
@@ -2687,7 +2950,7 @@ def main() -> int:
     stream = phase_stream_vs_plain(rtt, scenes)
     sorted_small = phase_sorted_vs_plain(rtt, scenes)
     lowp_err = phase_lowp_vs_plain(rtt)
-    launches, cli_k1_ms = phase_main_path(rtt)
+    launches, cli_k1_ms, cli_bound = phase_main_path(rtt)
     train = phase_train(rtt)
     mesh_main = phase_mesh_main_paths(rtt, scenes)
     mgrad = phase_mesh_grad(rtt, scenes)
@@ -2702,20 +2965,37 @@ def main() -> int:
     big = sperf["164k"]
     # each kernel's device time over its launches on this run's main paths
     # (launches x the time at their shapes): the redesign order's input
-    k1_total = (cli_k1_ms + train["k1_launches"] * gperf["k1_ms"]
-                + mgrad["launches"]["K1"] * sperf["OBJ-10k"]["fwd_ms"])
-    k5_total = (train["k5_launches"] * gperf["ms"]
-                + mgrad["launches"]["K5"] * sperf["OBJ-10k"]["bwd_ms"])
-    log(f"\nover this run's main-path launches: K1 {k1_total:.3f} ms "
-        f"({launches} CLI bands {cli_k1_ms:.3f} ms, {train['k1_launches']} "
-        f"x {gperf['k1_ms']:.3f} ms default-world passes, "
-        f"{mgrad['launches']['K1']} x {sperf['OBJ-10k']['fwd_ms']:.3f} ms "
-        f"OBJ-10k passes); K5 {k5_total:.3f} ms ({train['k5_launches']} x "
-        f"{gperf['ms']:.3f} + {mgrad['launches']['K5']} x "
-        f"{sperf['OBJ-10k']['bwd_ms']:.3f}); K2 "
-        f"{mgrad['launches']['K2'] * big['fwd_ms']:.3f} ms, K5s "
-        f"{mgrad['launches']['K5s'] * big['bwd_ms']:.3f} ms "
-        f"({mgrad['launches']['K2']} x the 164k pass's)")
+    obj = sperf["OBJ-10k"]
+    sums = {
+        "K1": (cli_k1_ms + train["k1_launches"] * gperf["k1_ms"]
+               + mgrad["launches"]["K1"] * obj["fwd_ms"],
+               f"{launches} CLI bands {cli_k1_ms:.3f} ms (bound "
+               f"{cli_bound[0]:.4f}), {train['k1_launches']} x "
+               f"{gperf['k1_ms']:.3f} ms default-world passes, "
+               f"{mgrad['launches']['K1']} x {obj['fwd_ms']:.3f} ms OBJ-10k "
+               f"passes (bound {obj['k1_bound'][0]:.4f})"),
+        "K5": (train["k5_launches"] * gperf["ms"]
+               + mgrad["launches"]["K5"] * obj["bwd_ms"],
+               f"{train['k5_launches']} x {gperf['ms']:.3f} + "
+               f"{mgrad['launches']['K5']} x {obj['bwd_ms']:.3f} (bound "
+               f"{obj['k5_bound'][0]:.4f})"),
+        "K2": (mgrad["launches"]["K2"] * big["fwd_ms"],
+               f"{mgrad['launches']['K2']} x the 164k pass's"),
+        "K5s": (mgrad["launches"]["K5s"] * big["bwd_ms"],
+                f"{mgrad['launches']['K5s']} x the 164k pass's"),
+        "K1-lowp": (lowp_launches * soperf["lowp"]["ms"],
+                    f"{lowp_launches} x the study frame's"),
+        "K3": (mesh_main["k3_launches"] * mperf["k3"]["ms"]
+               / API_SHAPE["depth"],
+               f"{mesh_main['k3_launches']} passes at OBJ-10k 512x288's "
+               f"mean"),
+        "K4": (mesh_main["k4_launches"] * mperf["k4"]["ms"],
+               f"{mesh_main['k4_launches']} CLI bands"),
+        "K6": (sum(soperf["OBJ-10k"]["bounce_ms"])
+               + sum(soperf["164k"]["bounce_ms"]),
+               f"{smain['k6_launches']} bounces of (A) and (B)")}
+    log("\nover this run's main-path launches: " + "; ".join(
+        f"{k} {ms:.3f} ms ({how})" for k, (ms, how) in sums.items()))
     print(json.dumps({"kernels": [{
         "name": "wavefront_render (K1)", "route": "cuda",
         "source": "raytracer_tpu_torch/csrc/wavefront.cu",

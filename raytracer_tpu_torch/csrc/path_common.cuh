@@ -13,9 +13,10 @@
 // triangle steps with their tie rules (spheres need a strictly smaller t,
 // triangles win ties), the sphere stage, the normal fix-ups, the
 // unit-sphere draw, the material scatter and the bounce bookkeeping; and
-// for K4, K6, K2 and K5s the warp-staged sub-leaf walk, and for K4, K2 and
-// K5s the (pixel, sample) thread layout, its persistent-warp tile loop and
-// K1's sample-order pixel sum across a warp of such lanes.  All files are
+// for K4, K6, K2 and K5s the warp-staged sub-leaf walk, for K1 and K5 its
+// one-level form over leaf chunks, and for K1, K4, K2, K5 and K5s the
+// (pixel, sample) thread layout, its persistent-warp tile loop and the
+// sample-order pixel sum across a warp of such lanes.  All files are
 // built with -fmad=false, so each expression rounds as written.
 
 #pragma once
@@ -44,8 +45,7 @@ constexpr float TINY = 0x1.79ca1p-67f;          // f32(1e-20)
 constexpr float INV_2_24_M1 = 0x1.000002p-24f;  // f32(1 / (2^24 - 1))
 constexpr float SKY_G = 0x1.333334p-2f;         // f32(0.3)
 
-// warp tile 8x4, block tile 16x8 (2x2 warps)
-constexpr int WARP_W = 8, WARP_H = 4, BLOCK_W = 16, BLOCK_H = 8;
+// threads a block (four warps)
 constexpr int THREADS = 128;
 
 __device__ __forceinline__ void pcg3d(unsigned &x, unsigned &y, unsigned &z) {
@@ -309,7 +309,7 @@ __device__ __forceinline__ void tri_step(const float *__restrict__ tri, int nt,
   }
 }
 
-// ---- warp-staged sub-leaves (K4, K6, K2 and K5s) ----
+// ---- warp-staged sub-leaves (K4, K6, K2 and K5s; chunks of K1 and K5) ----
 // A warp whose vote passes a 32-column sub-leaf copies the sub-leaf's 16
 // test rows (TRI_NX .. edge 2's w: 2 KB) into a shared-memory tile with
 // cp.async, transposed: triangle j's rows sit at tile[j * STAGE_STRIDE ..],
@@ -350,7 +350,8 @@ __device__ __forceinline__ void stage_wait() {
 // tri_step on staged triangle j of tile (column ti of tri for a winner's
 // material rows): the same operations in the same order, on the test rows
 // read as four 16-byte loads.  tri_step itself stays as it is, so the
-// kernels that read the table directly (K1, K2, K3, K5) compile as before.
+// kernels that read the table directly (K3, the flat scans of K1 and K5)
+// compile as before.
 template <bool PARITY, bool TRACK>
 __device__ __forceinline__ void tri_step_staged(const float *tile, int j,
                                                 const float *__restrict__ tri,
@@ -473,60 +474,103 @@ constexpr int STREAM_LEAF_PAD = 128;
 constexpr int LEAF_SUBS = STREAM_LEAF_PAD / STAGE_COLS;
 constexpr int TOP_LEAVES_MAX = 16;
 
-// closest hit over the triangles: flat, or culled warp by warp through
-// leaf AABBs (one level: K1, K5, and K1 over the leaves of a two-level
-// walk, which K2 must equal).  Winner ids are n_sph + the column.  The
-// n_tops > 0 branch is the sequential two-level walk (_streamed_tri_walk:
-// tops gate the leaf tests, a passing leaf's packed count of columns read
-// from its slot, winners n_sph + the packed column) that K2 and K5s ran
-// before they had kernels of their own (two_level_staged_walk below).  No
-// entry point passes tops now.  K1 still takes n_tops from its parameters
-// (always 0) because its register allocation follows the branch: built
-// without it, K1 took 72 registers where it takes 64 and K1-lowp 64 where
-// it takes 56 (ptxas, sm_90a); K5 passes a literal 0, which keeps its
-// registers and spills.  Loop bounds are warp-uniform: every lane reaches
-// every __any_sync.
+// ---- the triangle stage of K1 and K5 ----
+// the walk an instance compiles: none (the table is one padding column,
+// which never hits: the wrappers check), the flat scan, or the one-level
+// walk over leaves (the correct plane sign only)
+enum TriWalk { WALK_NONE = 0, WALK_FLAT = 1, WALK_LEAVES = 2 };
+
+// the one-level walk's tables (row-major, device memory): the packed
+// triangle table (n_tri columns), leaf AABBs (6, n_leaves) and their column
+// ranges (2, n_leaves); `chunks`: the most 32-column chunks a leaf holds
+// (1 .. 64)
+struct OneLevel {
+  const float *tri;
+  const float *leafb;
+  const int *leafr;
+  int n_tri, n_leaves, chunks;
+};
+
+// stage_sub_leaf for a chunk of n <= 32 columns that may end the table:
+// lanes past n copy nothing (each still commits a group)
+__device__ __forceinline__ void stage_chunk(float *tile,
+                                            const float *__restrict__ tri,
+                                            int nt, int col0, int n,
+                                            int lane) {
+  if (lane < n)
+    stage_sub_leaf(tile, tri, nt, col0, lane);
+  else
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// _make_tri_body over the leaves of the packed table (K1 and K5): leaves in
+// index order, each one's columns in order, ties to the last visited,
+// winners n_sph + the packed column, as the sequential walk takes them.
+// Leaves are voted 64 / chunks at a time into a mask of their 32-column
+// chunks; staged_sub_walk copies each masked chunk into one of the warp's
+// two tiles while the one before it is tested, and votes its leaf again
+// before the leaf's first chunk and before each later one, since the
+// warp's hits may have moved closer.  A leaf box that no live lane passes
+// holds no hit at t <= t_best (the boxes are conservative: the sequential
+// walk already culls on them), so the hits are the sequential walk's bit
+// for bit.  `tiles`: the warp's two staging tiles; every lane calls.
 template <bool PARITY, bool TRACK>
-__device__ __forceinline__ void triangle_hits(
-    const float *__restrict__ tri, int n_tri, const float *__restrict__ tric_b,
-    const int *__restrict__ tric_r, int n_tric,
-    const float *__restrict__ trit_b, const int *__restrict__ trit_r,
-    int n_tops, int n_sph, const Ray &r, bool alive, Hit &h) {
-  if (n_tops > 0) {
-    const float ivx = inv_dir(r.dx), ivy = inv_dir(r.dy), ivz = inv_dir(r.dz);
-    for (int tci = 0; tci < n_tops; ++tci) {
-      const bool top_p =
-          alive && aabb_test(trit_b, n_tops, tci, r, ivx, ivy, ivz, h.t);
-      if (!__any_sync(FULL_MASK, top_p)) continue;
-      const int c1 = trit_r[n_tops + tci];
-      for (int ci = trit_r[tci]; ci < c1; ++ci) {
-        const bool possible =
-            alive && aabb_test(tric_b, n_tric, ci, r, ivx, ivy, ivz, h.t);
-        if (__any_sync(FULL_MASK, possible)) {
-          const int p0 = tric_r[ci];
-          const int n = tric_r[n_tric + ci] - p0;
-          const int col0 = ci * STREAM_LEAF_PAD;
+__device__ __forceinline__ void leaf_staged_walk(const OneLevel &w, int n_sph,
+                                                 const Ray &r, bool alive,
+                                                 Hit &h, float *tiles,
+                                                 int lane) {
+  const float ivx = inv_dir(r.dx), ivy = inv_dir(r.dy), ivz = inv_dir(r.dz);
+  auto leaf_ok = [&](int li) {
+    return __any_sync(FULL_MASK, alive && aabb_test(w.leafb, w.n_leaves, li,
+                                                    r, ivx, ivy, ivz, h.t));
+  };
+  // chunk s of a group: its leaf's first column and its own
+  auto chunk = [&](int l0, int s, int &li, int &c0) {
+    li = l0 + s / w.chunks;
+    c0 = w.leafr[li] + (s % w.chunks) * STAGE_COLS;
+  };
+  const int group = 64 / w.chunks;
+  for (int l0 = 0; l0 < w.n_leaves; l0 += group) {
+    const int l1 = min(l0 + group, w.n_leaves);
+    unsigned long long mask = 0ull;
+    for (int li = l0; li < l1; ++li) {
+      if (!leaf_ok(li)) continue;
+      const int n = w.leafr[w.n_leaves + li] - w.leafr[li];
+      for (int k = 0; k * STAGE_COLS < n; ++k)
+        mask |= 1ull << ((li - l0) * w.chunks + k);
+    }
+    staged_sub_walk(
+        mask, w.chunks, tiles, [&](int q) { return leaf_ok(l0 + q); },
+        [&](int s) { return s % w.chunks == 0 || leaf_ok(l0 + s / w.chunks); },
+        [&](int s, float *tile) {
+          int li, c0;
+          chunk(l0, s, li, c0);
+          stage_chunk(tile, w.tri, w.n_tri, c0,
+                      min(w.leafr[w.n_leaves + li] - c0, STAGE_COLS), lane);
+        },
+        [&](int s, const float *tile) {
+          int li, c0;
+          chunk(l0, s, li, c0);
+          const int n = min(w.leafr[w.n_leaves + li] - c0, STAGE_COLS);
           for (int j = 0; j < n; ++j)
-            tri_step<PARITY, TRACK>(tri, n_tri, col0 + j, r, h,
-                                    (float)n_sph + (float)(p0 + j));
-        }
-      }
-    }
-  } else if (n_tric > 0) {
-    const float ivx = inv_dir(r.dx), ivy = inv_dir(r.dy), ivz = inv_dir(r.dz);
-    for (int ci = 0; ci < n_tric; ++ci) {
-      const bool possible =
-          alive && aabb_test(tric_b, n_tric, ci, r, ivx, ivy, ivz, h.t);
-      if (__any_sync(FULL_MASK, possible)) {
-        const int t1 = tric_r[n_tric + ci];
-        for (int ti = tric_r[ci]; ti < t1; ++ti)
-          tri_step<PARITY, TRACK>(tri, n_tri, ti, r, h,
-                                  (float)n_sph + (float)ti);
-      }
-    }
-  } else {
-    for (int ti = 0; ti < n_tri; ++ti)
-      tri_step<PARITY, TRACK>(tri, n_tri, ti, r, h,
+            tri_step_staged<PARITY, TRACK>(tile, j, w.tri, w.n_tri, c0 + j, r,
+                                           h, (float)n_sph + (float)(c0 + j));
+        });
+  }
+}
+
+// closest hit over the triangles by the walk WALK; winner ids are n_sph +
+// the column.  `tiles` and `lane` serve the leaf walk only.
+template <bool PARITY, bool TRACK, int WALK>
+__device__ __forceinline__ void triangle_hits(const OneLevel &w, int n_sph,
+                                              const Ray &r, bool alive,
+                                              Hit &h, float *tiles,
+                                              int lane) {
+  if constexpr (WALK == WALK_LEAVES) {
+    leaf_staged_walk<PARITY, TRACK>(w, n_sph, r, alive, h, tiles, lane);
+  } else if constexpr (WALK == WALK_FLAT) {
+    for (int ti = 0; ti < w.n_tri; ++ti)
+      tri_step<PARITY, TRACK>(w.tri, w.n_tri, ti, r, h,
                               (float)n_sph + (float)ti);
   }
 }
@@ -605,7 +649,7 @@ __device__ __forceinline__ void two_level_staged_walk(const TwoLevel &w,
   }
 }
 
-// ---- the (pixel, sample) thread layout (K2 and K5s) ----
+// ---- the (pixel, sample) thread layout (K1, K2, K5 and K5s) ----
 // ops/cuda/wavefront_stream.py thread_layout: a warp holds a tile_w x
 // tile_h tile of pixels x `run` consecutive samples of each (lane = pixel *
 // run + sample % run, pixels row-major in the tile); a spp above the run
@@ -682,6 +726,18 @@ inline cudaError_t resident_grid(Kernel kernel, int blocks, int &grid) {
                                                       THREADS, 0);
   grid = min(blocks, max(per_sm * sms, 1));
   return e;
+}
+
+// a persistent launch of `kernel` on `s` (resident_grid's grid); returns
+// cudaGetLastError() after it
+template <class Kernel, class P>
+inline cudaError_t launch_persistent(Kernel kernel, const P &p, int blocks,
+                                     cudaStream_t s) {
+  int grid = 0;
+  const cudaError_t e = resident_grid(kernel, blocks, grid);
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, THREADS, 0, s>>>(p);
+  return cudaGetLastError();
 }
 
 // the camera ray through (u, v): cam is [origin, lower-left corner,

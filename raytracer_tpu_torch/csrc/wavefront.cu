@@ -19,44 +19,47 @@
 // site 1+b, the sky, and the throughput/radiance bookkeeping; outputs are
 // the mean RGB per pixel and a per-pixel count of traced segments.
 //
-// What bounds K1 on the card: FP32 ALU throughput and branch divergence, not
-// bytes.  Each ray segment costs ~25 flops per sphere and ~40 per triangle
-// against a few KB of scene tables that stay in L1/L2; device memory sees one
-// write of the image per launch.  Divergence comes from rays of one warp that
-// die at different bounces and from cluster culling.  K1's design:
-//  * one thread per pixel, all ray state in registers (~15 floats of ray and
-//    throughput plus the 10-float hit state), looping samples and bounces;
-//  * each warp owns a compact 8x4 pixel tile (blocks are 16x8), so its rays
-//    form a tight frustum and take the same cluster decisions;
-//  * scene tables are read-only row-major (ROWS, N) arrays: every lane of a
-//    warp reads the same column, one broadcast load through L1;
-//  * culling has the TPU kernel's semantics one level down: each lane runs
-//    the AABB slab test and the warp grinds a cluster's members if any live
-//    lane might hit (__any_sync).  Loop bounds stay warp-uniform, so every
-//    lane, live or not, reaches every __any_sync;
-//  * the bounce loop ends when no lane of the warp is alive; dead lanes
-//    change nothing, so this is the per-pixel result of the full loop.
-//
-// What bounds K2 (the 164k-triangle gradient pass: 256x256, 4 spp, depth
-// 4): not arithmetic (the rays' own walk is ~0.02 ms at the float32 peak
-// against ~20 ms for K1's layout) but occupancy and the walk's waste.  One
-// thread per pixel made 512 blocks of 128 threads, ~15 warps an SM, each
-// thread tracing its samples one after another; a passing leaf was tested
-// whole (~80 triangles, up to its 128-column slot), each test reading 16
-// plane-strided words of the 25 MB leaf-aligned table, and the warps ran
-// ~15x the tests their rays needed.  K2's design (K4's, without K4's
-// camera-ordered tops and early exit, which would change the visit order):
-//  * one thread per (pixel, sample) (TileLayout: 8 pixels x 4 samples a
-//    warp at 4 spp) on persistent warps that take tiles from a counter;
+// What bounds K1 on the card: FP32 ALU throughput, occupancy and branch
+// divergence, not bytes.  Each ray segment costs ~25 flops per sphere and
+// ~40 per triangle against a few KB of scene tables that stay in L1/L2;
+// device memory sees one write of the image per launch.  One thread per
+// pixel looping over its samples left the card idle at the main path's
+// small launches: a CLI band (512 x 18 pixels, 64 spp) was 96 blocks of
+// 128 threads, 384 warps on a card of 8,448 warp slots, each thread
+// tracing 64 samples alone; the OBJ-10k gradient pass (256 x 256, 8 spp)
+// was 512 blocks, and a warp ground each leaf a lane passed whole, with
+// strided loads from the packed table.  K1's design (K2's, with the
+// one-level walk):
+//  * one thread per (pixel, sample) (TileLayout: runs of up to 16 samples
+//    of one pixel a warp, wavefront_stream.thread_layout) on persistent
+//    warps that take tiles from a counter, so a launch of any size fills
+//    the card and ends without a part-empty wave;
 //  * a pixel's samples are summed in sample order from 0.0f through warp
 //    shuffles (pixel_sum_run) and scaled once by inv_spp, segments by an
 //    integer sum: the image is bitwise what one thread per pixel gives;
-//  * sub-leaf boxes (32 columns, from the live vertices: ops/diff.py) and
-//    warp-staged sub-leaves (two_level_staged_walk): a passing sub-leaf's
-//    16 test rows are copied with cp.async into one of the warp's two
-//    shared tiles while the previous one is tested.  Its winners are the
-//    packed columns, so K2 over a topology takes K1's hits over the same
-//    leaves bit for bit.
+//  * all ray state in registers; scene tables row-major (ROWS, N), every
+//    lane of a warp reading the same column (a broadcast load through L1);
+//  * the kernel is templated on the triangle walk (TriWalk): none (a table
+//    of one padding column: the sphere-only scenes), the flat scan, or the
+//    one-level leaf walk, so the sphere-only instance carries none of the
+//    leaf walk's masks and tiles; the leaf walk (leaf_staged_walk) votes a
+//    leaf per warp (__any_sync: the TPU kernel's culling one level down)
+//    and copies a passing leaf's 32-column chunks of the packed table with
+//    cp.async into the warp's two shared tiles, testing one while the next
+//    is in flight;
+//  * the bounce loop ends when no lane of the warp is alive; dead lanes
+//    change nothing, so this is the per-lane result of the full loop.
+//
+// What bounds K2 (the 164k-triangle gradient pass: 256x256, 4 spp, depth
+// 4): not arithmetic (the rays' own walk is ~0.02 ms at the float32 peak)
+// but occupancy and the walk's waste: one thread per pixel made ~15 warps
+// an SM, and a passing leaf was tested whole, each test reading 16
+// plane-strided words of the 25 MB leaf-aligned table.  K2 takes K1's
+// layout and its own walk (K4's, without K4's camera-ordered tops and early
+// exit, which would change the visit order): sub-leaf boxes (32 columns,
+// from the live vertices: ops/diff.py) and warp-staged sub-leaves
+// (two_level_staged_walk).  Its winners are the packed columns, so K2 over
+// a topology takes K1's hits over the same leaves bit for bit.
 //
 // Numerics: built with -fmad=false and IEEE division and square root, so
 // the operation order below (which follows the Pallas body) gives the same
@@ -70,93 +73,12 @@ namespace {
 
 using namespace rt_path;
 
-struct Params {
-  const float *sph;
-  const float *tri;
-  const float *cam;
-  const float *sphc_b;
-  const int *sphc_r;
-  const float *tric_b;
-  const int *tric_r;
-  const float *trit_b;  // no tops: triangle_hits' two-level branch stays
-  const int *trit_r;    // untaken (see there)
-  float *mean;
-  int *segs;
-  int n_sph, n_tri, n_sphc, n_tric, n_tops;
-  int width, height, shard_rows, row_offset, row_stride;
-  unsigned seed_word;
-  int spp, depth;
-  float inv_spp;
-};
-
-template <bool PARITY, bool LOWP>
-__global__ void __launch_bounds__(THREADS)
-    wavefront_kernel(const Params p) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  // _block_pixel_setup: global (row, col) -> pixel id and RNG counter
-  const int pcol = blockIdx.x * BLOCK_W + (warp & 1) * WARP_W + (lane & 7);
-  const int band_row = blockIdx.y * BLOCK_H + (warp >> 1) * WARP_H + (lane >> 3);
-  const int prow = p.row_offset + band_row * p.row_stride;
-  // lanes outside the image or the band are dead from the start, but stay in
-  // the warp-uniform loops below
-  const bool active0 =
-      (prow < p.height) && (pcol < p.width) && (band_row < p.shard_rows);
-  const int prow_c = min(prow, p.height - 1);
-  const int pcol_c = min(pcol, p.width - 1);
-  const unsigned pix_u = (unsigned)(prow_c * p.width + pcol_c) + p.seed_word;
-  const float prow_f = (float)prow_c;
-  const float pcol_f = (float)pcol_c;
-  const float w1 = (float)(p.width - 1);
-  const float h1 = (float)(p.height - 1);
-
-  const float *__restrict__ sph = p.sph;
-  const float *__restrict__ tri = p.tri;
-  float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
-  int seg = 0;
-
-  for (int s = 0; s < p.spp; ++s) {
-    unsigned ju = pix_u, jv = (unsigned)s, jw = 0u;
-    pcg3d(ju, jv, jw);
-    Ray r = camera_ray(p.cam, (pcol_f + u01(ju)) / w1,
-                       (prow_f + u01(jv)) / h1);
-
-    PathColor c = {1.0f, 1.0f, 1.0f, 0.0f, 0.0f, 0.0f};
-    bool alive = active0;
-
-    for (int b = 0; b < p.depth; ++b) {
-      if (!__any_sync(FULL_MASK, alive)) break;  // warp-uniform early exit
-      seg += alive ? 1 : 0;
-      Hit h = no_hit();
-      sphere_hits<LOWP>(sph, p.n_sph, p.sphc_b, p.sphc_r, p.n_sphc, r, alive,
-                        h);
-      // triangles (common.rs:124-166 via edge constants)
-      triangle_hits<PARITY, false>(tri, p.n_tri, p.tric_b, p.tric_r, p.n_tric,
-                                   p.trit_b, p.trit_r, p.n_tops, p.n_sph, r,
-                                   alive, h);
-      resolve_tri_normals(h);
-      alive = shade(pix_u, s, b, r, h, alive, c);
-    }
-    acc_r = acc_r + c.rr;
-    acc_g = acc_g + c.rg;
-    acc_b = acc_b + c.rb;
-  }
-
-  if (band_row < p.shard_rows && pcol < p.width) {
-    const long long o = (long long)band_row * p.width + pcol;
-    p.mean[3 * o + 0] = acc_r * p.inv_spp;
-    p.mean[3 * o + 1] = acc_g * p.inv_spp;
-    p.mean[3 * o + 2] = acc_b * p.inv_spp;
-    p.segs[o] = seg;
-  }
-}
-
-struct StreamParams {
+// what K1 and K2 share: spheres, camera, outputs, the frame and the layout
+struct Frame {
   const float *sph;
   const float *cam;
   const float *sphc_b;
   const int *sphc_r;
-  TwoLevel walk;
   float *mean;
   int *segs;
   int *next_tile;  // the work counter, 0 at launch
@@ -168,111 +90,183 @@ struct StreamParams {
   TileLayout lay;
 };
 
-// K2: one warp tile of (pixel, sample) lanes at a time; per lane K1's
-// sample loop body over the samples base + j, base = 0, run, ...
+struct Params {
+  Frame f;
+  OneLevel tris;
+};
+
+struct StreamParams {
+  Frame f;
+  TwoLevel walk;
+};
+
+// warp tile w of (pixel, sample) lanes: per lane K1's sample loop body over
+// the samples base + j, base = 0, run, ..., the triangles through walk(r,
+// alive, h); the pixel's samples summed in sample order and its segments,
+// written by its first lane
+template <bool LOWP, class Walk>
+__device__ __forceinline__ void trace_tile(const Frame &p, int w, int lane,
+                                           Walk walk) {
+  const float w1 = (float)(p.width - 1);
+  const float h1 = (float)(p.height - 1);
+  const LanePixel q =
+      lane_pixel(p.lay, w, lane, p.width, p.height, p.shard_rows,
+                 p.row_offset, p.row_stride, p.seed_word);
+  float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
+  int seg = 0;
+  for (int base = 0; base < p.spp; base += p.lay.run) {
+    const int s = base + q.j;
+    unsigned ju = q.pix_u, jv = (unsigned)s, jw = 0u;
+    pcg3d(ju, jv, jw);
+    Ray r = camera_ray(p.cam, (q.pcol_f + u01(ju)) / w1,
+                       (q.prow_f + u01(jv)) / h1);
+    PathColor c = {1.0f, 1.0f, 1.0f, 0.0f, 0.0f, 0.0f};
+    bool alive = q.active0 && s < p.spp;
+    for (int b = 0; b < p.depth; ++b) {
+      if (!__any_sync(FULL_MASK, alive)) break;  // warp-uniform early exit
+      seg += alive ? 1 : 0;
+      Hit h = no_hit();
+      sphere_hits<LOWP>(p.sph, p.n_sph, p.sphc_b, p.sphc_r, p.n_sphc, r,
+                        alive, h);
+      walk(r, alive, h);
+      resolve_tri_normals(h);
+      alive = shade(q.pix_u, s, b, r, h, alive, c);
+    }
+    acc_r = pixel_sum_run(acc_r, c.rr, p.lay.run, base, p.spp, lane);
+    acc_g = pixel_sum_run(acc_g, c.rg, p.lay.run, base, p.spp, lane);
+    acc_b = pixel_sum_run(acc_b, c.rb, p.lay.run, base, p.spp, lane);
+  }
+  for (int off = p.lay.run / 2; off > 0; off >>= 1)
+    seg += __shfl_xor_sync(FULL_MASK, seg, off);
+  if (q.j == 0 && q.in_band) {
+    const long long o = (long long)q.band_row * p.width + q.pcol;
+    p.mean[3 * o + 0] = acc_r * p.inv_spp;
+    p.mean[3 * o + 1] = acc_g * p.inv_spp;
+    p.mean[3 * o + 2] = acc_b * p.inv_spp;
+    p.segs[o] = seg;
+  }
+}
+
+// K1 (K1-lowp with LOWP): the triangles by the walk WALK (TriWalk)
+template <bool PARITY, bool LOWP, int WALK>
+__global__ void __launch_bounds__(THREADS) wavefront_kernel(const Params p) {
+  const int lane = threadIdx.x & 31;
+  float *my_tiles = nullptr;
+  if constexpr (WALK == WALK_LEAVES) {
+    __shared__ __align__(16) float tiles[THREADS / 32][2 * STAGE_FLOATS];
+    my_tiles = tiles[threadIdx.x >> 5];
+  }
+  for_each_tile(p.f.next_tile, p.f.lay.n_tiles, lane, [&](int w) {
+    trace_tile<LOWP>(p.f, w, lane, [&](const Ray &r, bool alive, Hit &h) {
+      triangle_hits<PARITY, false, WALK>(p.tris, p.f.n_sph, r, alive, h,
+                                         my_tiles, lane);
+    });
+  });
+}
+
+// K2: the two-level walk with staged sub-leaves
 __global__ void __launch_bounds__(THREADS)
     two_level_kernel(const StreamParams p) {
   __shared__ __align__(16) float tiles[THREADS / 32][2 * STAGE_FLOATS];
   const int lane = threadIdx.x & 31;
   float *my_tiles = tiles[threadIdx.x >> 5];
-  const float w1 = (float)(p.width - 1);
-  const float h1 = (float)(p.height - 1);
-  for_each_tile(p.next_tile, p.lay.n_tiles, lane, [&](int w) {
-    const LanePixel q =
-        lane_pixel(p.lay, w, lane, p.width, p.height, p.shard_rows,
-                   p.row_offset, p.row_stride, p.seed_word);
-    float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
-    int seg = 0;
-    for (int base = 0; base < p.spp; base += p.lay.run) {
-      const int s = base + q.j;
-      unsigned ju = q.pix_u, jv = (unsigned)s, jw = 0u;
-      pcg3d(ju, jv, jw);
-      Ray r = camera_ray(p.cam, (q.pcol_f + u01(ju)) / w1,
-                         (q.prow_f + u01(jv)) / h1);
-      PathColor c = {1.0f, 1.0f, 1.0f, 0.0f, 0.0f, 0.0f};
-      bool alive = q.active0 && s < p.spp;
-      for (int b = 0; b < p.depth; ++b) {
-        if (!__any_sync(FULL_MASK, alive)) break;  // warp-uniform early exit
-        seg += alive ? 1 : 0;
-        Hit h = no_hit();
-        sphere_hits(p.sph, p.n_sph, p.sphc_b, p.sphc_r, p.n_sphc, r, alive,
-                    h);
-        two_level_staged_walk<false>(p.walk, p.n_sph, r, alive, h, my_tiles,
-                                     lane);
-        resolve_tri_normals(h);
-        alive = shade(q.pix_u, s, b, r, h, alive, c);
-      }
-      acc_r = pixel_sum_run(acc_r, c.rr, p.lay.run, base, p.spp, lane);
-      acc_g = pixel_sum_run(acc_g, c.rg, p.lay.run, base, p.spp, lane);
-      acc_b = pixel_sum_run(acc_b, c.rb, p.lay.run, base, p.spp, lane);
-    }
-    for (int off = p.lay.run / 2; off > 0; off >>= 1)
-      seg += __shfl_xor_sync(FULL_MASK, seg, off);
-    if (q.j == 0 && q.in_band) {
-      const long long o = (long long)q.band_row * p.width + q.pcol;
-      p.mean[3 * o + 0] = acc_r * p.inv_spp;
-      p.mean[3 * o + 1] = acc_g * p.inv_spp;
-      p.mean[3 * o + 2] = acc_b * p.inv_spp;
-      p.segs[o] = seg;
-    }
+  for_each_tile(p.f.next_tile, p.f.lay.n_tiles, lane, [&](int w) {
+    trace_tile<false>(p.f, w, lane, [&](const Ray &r, bool alive, Hit &h) {
+      two_level_staged_walk<false>(p.walk, p.f.n_sph, r, alive, h, my_tiles,
+                                   lane);
+    });
   });
+}
+
+template <bool PARITY, bool LOWP>
+cudaError_t launch_k1(const Params &p, int walk, int blocks,
+                      cudaStream_t s) {
+  if (walk == WALK_NONE)
+    return launch_persistent(wavefront_kernel<PARITY, LOWP, WALK_NONE>, p,
+                             blocks, s);
+  if (walk == WALK_FLAT)
+    return launch_persistent(wavefront_kernel<PARITY, LOWP, WALK_FLAT>, p,
+                             blocks, s);
+  if constexpr (!PARITY)  // leaves cull only under the correct sign
+    return launch_persistent(wavefront_kernel<false, LOWP, WALK_LEAVES>, p,
+                             blocks, s);
+  return cudaErrorInvalidValue;
+}
+
+// the frame fields of both entry points
+Frame make_frame(const float *sph, int n_sph, const float *sphc_b,
+                 const int *sphc_r, int n_sphc, const float *cam,
+                 float *mean, int *segs, int *next_tile, int width,
+                 int height, unsigned seed_word, int row_offset,
+                 int row_stride, int shard_rows, int spp, int depth,
+                 float inv_spp, const TileLayout &lay) {
+  Frame f;
+  f.sph = sph;
+  f.cam = cam;
+  f.sphc_b = sphc_b;
+  f.sphc_r = sphc_r;
+  f.mean = mean;
+  f.segs = segs;
+  f.next_tile = next_tile;
+  f.n_sph = n_sph;
+  f.n_sphc = n_sphc;
+  f.width = width;
+  f.height = height;
+  f.shard_rows = shard_rows;
+  f.row_offset = row_offset;
+  f.row_stride = row_stride;
+  f.seed_word = seed_word;
+  f.spp = spp;
+  f.depth = depth;
+  f.inv_spp = inv_spp;
+  f.lay = lay;
+  return f;
 }
 
 }  // namespace
 
 // Launch K1 on `stream`; lowp != 0 takes the bfloat16 sphere stage
 // (K1-lowp).  Tables are row-major (ROWS, N) float32 device arrays;
-// cluster tables may be null with a count of 0.  Writes mean
-// [shard_rows, width, 3] float32 and segs [shard_rows, width] int32.
+// cluster tables may be null with a count of 0.  walk (TriWalk): 0 none
+// (tri is one padding column), 1 the flat scan, 2 the one-level walk over
+// the triangle clusters (the correct sign; chunks: the most 32-column
+// chunks a cluster holds, 1 .. 64).  The thread layout (run .. n_tiles,
+// blocks) is thread_layout's; next_tile is one int32, 0 at launch.  Writes
+// mean [shard_rows, width, 3] float32 and segs [shard_rows, width] int32.
 // Returns cudaGetLastError() after the launch.
 extern "C" int rt_wavefront_render(
     const float *sph, int n_sph, const float *tri, int n_tri, const float *cam,
     const float *sphc_b, const int *sphc_r, int n_sphc, const float *tric_b,
-    const int *tric_r, int n_tric, float *mean, int *segs, int width,
-    int height, unsigned int seed_word, int row_offset, int row_stride,
-    int shard_rows, int spp, int depth, float inv_spp, int parity_plane_sign,
-    int lowp, void *stream) {
-  if (width < 1 || height < 1 || shard_rows < 1 || n_sph < 1 || n_tri < 1)
+    const int *tric_r, int n_tric, int chunks, float *mean, int *segs,
+    int *next_tile, int width, int height, unsigned int seed_word,
+    int row_offset, int row_stride, int shard_rows, int spp, int depth,
+    float inv_spp, int parity_plane_sign, int lowp, int walk, int run,
+    int tile_w, int tile_h, int tiles_x, int n_tiles, int blocks,
+    void *stream) {
+  const TileLayout lay = {run, tile_w, tile_h, tiles_x, n_tiles};
+  const bool leaves = walk == WALK_LEAVES;
+  if (width < 1 || height < 1 || shard_rows < 1 || n_sph < 1 || n_tri < 1 ||
+      spp < 1 || next_tile == nullptr || walk < WALK_NONE ||
+      walk > WALK_LEAVES || !layout_ok(lay, width, blocks) ||
+      (leaves && (parity_plane_sign || n_tric < 1 || chunks < 1 ||
+                  chunks > 64)))
     return (int)cudaErrorInvalidValue;
   Params p;
-  p.sph = sph;
-  p.tri = tri;
-  p.cam = cam;
-  p.sphc_b = sphc_b;
-  p.sphc_r = sphc_r;
-  p.tric_b = tric_b;
-  p.tric_r = tric_r;
-  p.trit_b = nullptr;
-  p.trit_r = nullptr;
-  p.mean = mean;
-  p.segs = segs;
-  p.n_sph = n_sph;
-  p.n_tri = n_tri;
-  p.n_sphc = n_sphc;
-  p.n_tric = n_tric;
-  p.n_tops = 0;
-  p.width = width;
-  p.height = height;
-  p.shard_rows = shard_rows;
-  p.row_offset = row_offset;
-  p.row_stride = row_stride;
-  p.seed_word = seed_word;
-  p.spp = spp;
-  p.depth = depth;
-  p.inv_spp = inv_spp;
-  const dim3 grid((width + BLOCK_W - 1) / BLOCK_W,
-                  (shard_rows + BLOCK_H - 1) / BLOCK_H);
-  if (grid.y > 65535) return (int)cudaErrorInvalidConfiguration;
+  p.f = make_frame(sph, n_sph, sphc_b, sphc_r, n_sphc, cam, mean, segs,
+                   next_tile, width, height, seed_word, row_offset,
+                   row_stride, shard_rows, spp, depth, inv_spp, lay);
+  p.tris = {tri, tric_b, tric_r, n_tri, n_tric, chunks};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
   if (parity_plane_sign && lowp)
-    wavefront_kernel<true, true><<<grid, THREADS, 0, s>>>(p);
+    e = launch_k1<true, true>(p, walk, blocks, s);
   else if (parity_plane_sign)
-    wavefront_kernel<true, false><<<grid, THREADS, 0, s>>>(p);
+    e = launch_k1<true, false>(p, walk, blocks, s);
   else if (lowp)
-    wavefront_kernel<false, true><<<grid, THREADS, 0, s>>>(p);
+    e = launch_k1<false, true>(p, walk, blocks, s);
   else
-    wavefront_kernel<false, false><<<grid, THREADS, 0, s>>>(p);
-  return (int)cudaGetLastError();
+    e = launch_k1<false, false>(p, walk, blocks, s);
+  return (int)e;
 }
 
 // Launch K2 on `stream` (the correct plane equation).  sph (11, n_sph) and
@@ -281,9 +275,8 @@ extern "C" int rt_wavefront_render(
 // (2, n_leaves; at most 128 columns a leaf); sub-leaf AABBs
 // (6, 4 n_leaves); top AABBs (6, n_tops) and leaf ranges (2, n_tops; at
 // most 16 leaves a top; the wrapper checks the ranges).  The thread
-// layout (run .. n_tiles, blocks) is thread_layout's; next_tile is one
-// int32, 0 at launch.  Writes mean [shard_rows, width, 3] and segs
-// [shard_rows, width].  Returns cudaGetLastError() after the launch.
+// layout and next_tile as for K1.  Writes mean [shard_rows, width, 3] and
+// segs [shard_rows, width].  Returns cudaGetLastError() after the launch.
 extern "C" int rt_wavefront_render_stream(
     const float *sph, int n_sph, const float *sphc_b, const int *sphc_r,
     int n_sphc, const float *tri, const float *leafb, const int *leafr,
@@ -299,30 +292,10 @@ extern "C" int rt_wavefront_render_stream(
       !layout_ok(lay, width, blocks))
     return (int)cudaErrorInvalidValue;
   StreamParams p;
-  p.sph = sph;
-  p.cam = cam;
-  p.sphc_b = sphc_b;
-  p.sphc_r = sphc_r;
+  p.f = make_frame(sph, n_sph, sphc_b, sphc_r, n_sphc, cam, mean, segs,
+                   next_tile, width, height, seed_word, row_offset,
+                   row_stride, shard_rows, spp, depth, inv_spp, lay);
   p.walk = {tri, leafb, leafr, subb, topb, topr, n_leaves, n_tops};
-  p.mean = mean;
-  p.segs = segs;
-  p.next_tile = next_tile;
-  p.n_sph = n_sph;
-  p.n_sphc = n_sphc;
-  p.width = width;
-  p.height = height;
-  p.shard_rows = shard_rows;
-  p.row_offset = row_offset;
-  p.row_stride = row_stride;
-  p.seed_word = seed_word;
-  p.spp = spp;
-  p.depth = depth;
-  p.inv_spp = inv_spp;
-  p.lay = lay;
-  int grid = 0;
-  const cudaError_t e = resident_grid(two_level_kernel, blocks, grid);
-  if (e != cudaSuccess) return (int)e;
-  two_level_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      p);
-  return (int)cudaGetLastError();
+  return (int)launch_persistent(two_level_kernel, p, blocks,
+                                static_cast<cudaStream_t>(stream));
 }

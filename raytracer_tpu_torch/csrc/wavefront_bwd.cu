@@ -24,47 +24,47 @@
 // cotangents summed over the samples.  The reduction from lanes to
 // primitives is plain PyTorch (ops/cuda/wavefront_bwd.py).
 //
-// What bounds K5 on the card: FP32 ALU throughput and divergence, as for K1 (it
-// traces each path once and runs ~250 flops of adjoint per bounce), plus
-// the residuals' traffic.  Device memory sees the image cotangent once and
-// 40 bytes per lane and bounce of gradients.  K5's design:
-//  * K1's thread layout: one thread per pixel looping over samples, warps on
-//    8x4 pixel tiles, blocks of 16x8;
+// What bounds K5 on the card: FP32 ALU throughput, occupancy and
+// divergence, as for K1 (it traces each path once and runs ~250 flops of
+// adjoint per bounce), plus the residuals' traffic.  Device memory sees the
+// image cotangent once and 40 bytes per lane and bounce of gradients.  One
+// thread per pixel made the OBJ-10k gradient pass (256 x 256, 8 spp) 512
+// blocks at 128 registers, under one wave of the card, each thread looping
+// its 8 samples and its warp grinding whole leaves with strided loads.
+// K5's design is K1's and K5s's:
+//  * one thread per (pixel, sample) on persistent warps (TileLayout); each
+//    lane writes its own sample's slab rows [s, b, :, lane], the values the
+//    per-pixel loop wrote, and the pixel's 12 camera cotangents are summed
+//    across its lanes in sample order from 0.0f (pixel_sum_run), the
+//    per-pixel loop's cam_acc = cam_acc + x, so cam_lanes is bitwise the
+//    per-pixel loop's (a lane's own cotangent, 0.0f + x, differs from x at
+//    most in the sign of a zero, which no sum from 0.0f keeps);
 //  * the same per-ray code as K1 (path_common.cuh: hit steps, tie rules,
 //    pcg3d draws, scatter), so each lane re-traces exactly K1's path;
 //  * spheres are scanned flat (the differentiable path packs them without a
-//    permutation); triangles cull by leaf AABBs with K1's warp rule, every
-//    lane reaching every __any_sync;
+//    permutation); triangles by K1's walks (TriWalk: none, flat, or the
+//    one-level leaf walk with warp-staged chunks, leaf_staged_walk);
 //  * residual storage: a per-thread array of MAX_DEPTH x 22 floats.  It
 //    lives in local memory, which the hardware interleaves across the lanes
 //    of a warp (coalesced like a plane-major scratch buffer, with no
 //    allocation or indexing in the wrapper) and caches in L1.  The wrapper
 //    raises on depth > MAX_DEPTH; nothing is ever cut short;
-//  * the camera cotangents are summed per lane in registers over the samples
-//    and written to a [12, lanes] buffer that the wrapper sums with
-//    torch.sum: no atomics, so the result is the same from run to run;
 //  * the forward sweep ends when no lane of the warp is alive, like K1's;
 //    bounces it did not trace have winner id -1 and leave the adjoints
 //    unchanged.
 //
 // What bounds K5s (the 164k-triangle gradient pass: 256x256, 4 spp, depth
 // 4): as K2, occupancy and the walk's waste, not the ~0.02 ms of bytes its
-// slab needs (~17.5 ms in K5's layout).  Its design is K2's:
-//  * one thread per (pixel, sample) on persistent warps (TileLayout); each
-//    lane writes its own sample's slab rows [s, b, :, lane], the values the
-//    per-pixel loop wrote, and the pixel's 12 camera cotangents are summed
-//    across its lanes in sample order from 0.0f (pixel_sum_run), K5's
-//    cam_acc = cam_acc + x, so cam_lanes is bitwise K5's;
-//  * sub-leaf boxes and warp-staged sub-leaves (two_level_staged_walk),
-//    the winners still packed columns;
-//  * the residuals stay in local memory, as K5's: 22 floats a bounce, 352
-//    bytes a thread at depth 4, cached in L1 beside the warps' 20 KB of
-//    staging tiles a block.  The kernel takes ~168 registers (3 blocks of
-//    128 threads an SM); capping them for more resident warps
-//    (__launch_bounds__ minimums of 4 and 6 blocks: 128 and 80 registers)
-//    spilled more and gained nothing at the 164k pass (chip_smoke.py
-//    --parts), and a shared-memory slice of residuals (11 KB a warp at
-//    depth 4) would leave fewer warps still.
+// slab needs.  It takes K5's layout with K2's walk: sub-leaf boxes and
+// warp-staged sub-leaves (two_level_staged_walk), the winners still packed
+// columns.  Its residuals stay in local memory, as K5's: 22 floats a
+// bounce, 352 bytes a thread at depth 4, cached in L1 beside the warps'
+// 20 KB of staging tiles a block.  The kernel takes ~168 registers (3
+// blocks of 128 threads an SM); capping them for more resident warps
+// (__launch_bounds__ minimums of 4 and 6 blocks: 128 and 80 registers)
+// spilled more and gained nothing at the 164k pass (chip_smoke.py
+// --parts), and a shared-memory slice of residuals (11 KB a warp at depth
+// 4) would leave fewer warps still.
 //
 // Guards are the TPU kernel's: grazing sphere hits (|u.d| < 1e-12) and
 // parallel triangle planes get a zero t adjoint, normalising a zero vector
@@ -92,20 +92,21 @@ enum {
   RS_FZ, RS_IR, RES_PLANES
 };
 
+// what K5 and K5s share: spheres, camera, cotangent, outputs, the frame and
+// the layout
 struct GradParams {
   const float *sph;
-  const float *tri;
   const float *cam;
-  const float *tric_b;
-  const int *tric_r;
   const float *g;   // image cotangent [shard_rows, width, 3]
   float *slab;      // [spp, depth, GRAD_PLANES, shard_rows * width]
   float *cam_lanes; // [12, shard_rows * width]
-  int n_sph, n_tri, n_tric;
+  int *next_tile;   // the work counter, 0 at launch
+  int n_sph;
   int width, height, shard_rows, row_offset, row_stride;
   unsigned seed_word;
   int spp, depth;
   float inv_spp;
+  TileLayout lay;
 };
 
 // unit normal at a hit from the residuals (wavefront_bwd.py:343-362)
@@ -578,150 +579,134 @@ __device__ __forceinline__ void grad_sample(
   cam_acc[11] = cam_acc[11] + v * db_z;
 }
 
-template <bool PARITY>
-__global__ void __launch_bounds__(THREADS)
-    wavefront_grad_kernel(const GradParams p) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int pcol = blockIdx.x * BLOCK_W + (warp & 1) * WARP_W + (lane & 7);
-  const int band_row = blockIdx.y * BLOCK_H + (warp >> 1) * WARP_H + (lane >> 3);
-  const int prow = p.row_offset + band_row * p.row_stride;
-  const bool in_band = (band_row < p.shard_rows) && (pcol < p.width);
-  const bool active0 = (prow < p.height) && in_band;
-  const int prow_c = min(prow, p.height - 1);
-  const int pcol_c = min(pcol, p.width - 1);
-  const unsigned pix_u = (unsigned)(prow_c * p.width + pcol_c) + p.seed_word;
-  const float prow_f = (float)prow_c;
-  const float pcol_f = (float)pcol_c;
+// Warp tile w of (pixel, sample) lanes (K1's layout): each lane runs
+// grad_sample on its samples base + j, base = 0, run, ..., writing its own
+// slab rows; the pixel's 12 camera cotangents are summed over its lanes in
+// sample order from 0.0f and written by its first lane.  res: the lane's
+// residual array.
+template <bool PARITY, class Walk>
+__device__ __forceinline__ void grad_tile(const GradParams &p, const Cam &cam,
+                                          int w, int lane,
+                                          float (*res)[RES_PLANES],
+                                          Walk walk) {
   const float w1 = (float)(p.width - 1);
   const float h1 = (float)(p.height - 1);
   const long long npix = (long long)p.shard_rows * p.width;
-  const long long o = in_band ? (long long)band_row * p.width + pcol : 0;
-  const Cam cam = load_cam(p.cam);
-
+  const LanePixel q =
+      lane_pixel(p.lay, w, lane, p.width, p.height, p.shard_rows,
+                 p.row_offset, p.row_stride, p.seed_word);
+  const long long o =
+      q.in_band ? (long long)q.band_row * p.width + q.pcol : 0;
   // image cotangent of this pixel, scaled by 1/spp (mean over samples)
-  const float gr = in_band ? p.g[3 * o + 0] * p.inv_spp : 0.0f;
-  const float gg = in_band ? p.g[3 * o + 1] * p.inv_spp : 0.0f;
-  const float gb = in_band ? p.g[3 * o + 2] * p.inv_spp : 0.0f;
-
+  const float gr = q.in_band ? p.g[3 * o + 0] * p.inv_spp : 0.0f;
+  const float gg = q.in_band ? p.g[3 * o + 1] * p.inv_spp : 0.0f;
+  const float gb = q.in_band ? p.g[3 * o + 2] * p.inv_spp : 0.0f;
   float cam_acc[12];
 #pragma unroll
   for (int k = 0; k < 12; ++k) cam_acc[k] = 0.0f;
-  float res[MAX_DEPTH][RES_PLANES];
-
-  for (int s = 0; s < p.spp; ++s) {
+  for (int base = 0; base < p.spp; base += p.lay.run) {
+    const int s = base + q.j;
+    const bool traced = s < p.spp;  // lanes past spp trace nothing
+    float cam_s[12];
+#pragma unroll
+    for (int k = 0; k < 12; ++k) cam_s[k] = 0.0f;
     grad_sample<PARITY>(
-        p, cam, pix_u, s, pcol_f, prow_f, w1, h1, active0, in_band,
-        p.slab + (long long)s * p.depth * GRAD_PLANES * npix + o, npix, gr,
-        gg, gb, res,
-        [&](const Ray &r, bool alive, Hit &h) {
-          triangle_hits<PARITY, true>(p.tri, p.n_tri, p.tric_b, p.tric_r,
-                                      p.n_tric, nullptr, nullptr, 0, p.n_sph,
-                                      r, alive, h);
-        },
-        cam_acc);
+        p, cam, q.pix_u, s, q.pcol_f, q.prow_f, w1, h1, q.active0 && traced,
+        q.in_band && traced,
+        p.slab + (long long)(traced ? s : 0) * p.depth * GRAD_PLANES * npix +
+            o,
+        npix, gr, gg, gb, res, walk, cam_s);
+#pragma unroll
+    for (int k = 0; k < 12; ++k)
+      cam_acc[k] =
+          pixel_sum_run(cam_acc[k], cam_s[k], p.lay.run, base, p.spp, lane);
   }
-
-  if (in_band) {
+  if (q.j == 0 && q.in_band) {
 #pragma unroll
     for (int k = 0; k < 12; ++k) p.cam_lanes[k * npix + o] = cam_acc[k];
   }
 }
 
+struct OneLevelGradParams {
+  GradParams g;
+  OneLevel tris;
+};
+
+// K5: the triangles by the walk WALK (TriWalk)
+template <bool PARITY, int WALK>
+__global__ void __launch_bounds__(THREADS)
+    wavefront_grad_kernel(const OneLevelGradParams kp) {
+  const GradParams &p = kp.g;
+  const int lane = threadIdx.x & 31;
+  float *my_tiles = nullptr;
+  if constexpr (WALK == WALK_LEAVES) {
+    __shared__ __align__(16) float tiles[THREADS / 32][2 * STAGE_FLOATS];
+    my_tiles = tiles[threadIdx.x >> 5];
+  }
+  const Cam cam = load_cam(p.cam);
+  float res[MAX_DEPTH][RES_PLANES];
+  for_each_tile(p.next_tile, p.lay.n_tiles, lane, [&](int w) {
+    grad_tile<PARITY>(p, cam, w, lane, res,
+                      [&](const Ray &r, bool alive, Hit &h) {
+                        triangle_hits<PARITY, true, WALK>(
+                            kp.tris, p.n_sph, r, alive, h, my_tiles, lane);
+                      });
+  });
+}
+
 struct StreamGradParams {
   GradParams g;
   TwoLevel walk;
-  TileLayout lay;
-  int *next_tile;  // the work counter, 0 at launch
 };
 
-// K5s: one warp tile of (pixel, sample) lanes at a time (K2's layout).  A
-// lane writes its own sample's slab rows; the pixel's 12 camera cotangents
-// are summed over its lanes in sample order from 0.0f (pixel_sum_run), as
-// K5's per-pixel loop sums them, and written by the pixel's first lane (a
-// lane's own cotangent, 0.0f + x, differs from x at most in the sign of a
-// zero, which no sum from 0.0f keeps).
+// K5s: K2's two-level walk with staged sub-leaves
 __global__ void __launch_bounds__(THREADS)
     two_level_grad_kernel(const StreamGradParams sp) {
   __shared__ __align__(16) float tiles[THREADS / 32][2 * STAGE_FLOATS];
   const GradParams &p = sp.g;
   const int lane = threadIdx.x & 31;
   float *my_tiles = tiles[threadIdx.x >> 5];
-  const float w1 = (float)(p.width - 1);
-  const float h1 = (float)(p.height - 1);
-  const long long npix = (long long)p.shard_rows * p.width;
   const Cam cam = load_cam(p.cam);
   float res[MAX_DEPTH][RES_PLANES];
-  for_each_tile(sp.next_tile, sp.lay.n_tiles, lane, [&](int w) {
-    const LanePixel q =
-        lane_pixel(sp.lay, w, lane, p.width, p.height, p.shard_rows,
-                   p.row_offset, p.row_stride, p.seed_word);
-    const long long o =
-        q.in_band ? (long long)q.band_row * p.width + q.pcol : 0;
-    const float gr = q.in_band ? p.g[3 * o + 0] * p.inv_spp : 0.0f;
-    const float gg = q.in_band ? p.g[3 * o + 1] * p.inv_spp : 0.0f;
-    const float gb = q.in_band ? p.g[3 * o + 2] * p.inv_spp : 0.0f;
-    float cam_acc[12];
-#pragma unroll
-    for (int k = 0; k < 12; ++k) cam_acc[k] = 0.0f;
-    for (int base = 0; base < p.spp; base += sp.lay.run) {
-      const int s = base + q.j;
-      const bool traced = s < p.spp;  // lanes past spp trace nothing
-      float cam_s[12];
-#pragma unroll
-      for (int k = 0; k < 12; ++k) cam_s[k] = 0.0f;
-      grad_sample<false>(
-          p, cam, q.pix_u, s, q.pcol_f, q.prow_f, w1, h1,
-          q.active0 && traced, q.in_band && traced,
-          p.slab + (long long)(traced ? s : 0) * p.depth * GRAD_PLANES * npix +
-              o,
-          npix, gr, gg, gb, res,
-          [&](const Ray &r, bool alive, Hit &h) {
-            two_level_staged_walk<true>(sp.walk, p.n_sph, r, alive, h,
-                                        my_tiles, lane);
-          },
-          cam_s);
-#pragma unroll
-      for (int k = 0; k < 12; ++k)
-        cam_acc[k] = pixel_sum_run(cam_acc[k], cam_s[k], sp.lay.run, base,
-                                   p.spp, lane);
-    }
-    if (q.j == 0 && q.in_band) {
-#pragma unroll
-      for (int k = 0; k < 12; ++k) p.cam_lanes[k * npix + o] = cam_acc[k];
-    }
+  for_each_tile(p.next_tile, p.lay.n_tiles, lane, [&](int w) {
+    grad_tile<false>(p, cam, w, lane, res,
+                     [&](const Ray &r, bool alive, Hit &h) {
+                       two_level_staged_walk<true>(sp.walk, p.n_sph, r, alive,
+                                                   h, my_tiles, lane);
+                     });
   });
 }
 
-}  // namespace
+template <bool PARITY>
+cudaError_t launch_k5(const OneLevelGradParams &p, int walk, int blocks,
+                      cudaStream_t s) {
+  if (walk == WALK_NONE)
+    return launch_persistent(wavefront_grad_kernel<PARITY, WALK_NONE>, p,
+                             blocks, s);
+  if (walk == WALK_FLAT)
+    return launch_persistent(wavefront_grad_kernel<PARITY, WALK_FLAT>, p,
+                             blocks, s);
+  if constexpr (!PARITY)  // leaves cull only under the correct sign
+    return launch_persistent(wavefront_grad_kernel<false, WALK_LEAVES>, p,
+                             blocks, s);
+  return cudaErrorInvalidValue;
+}
 
-// Launch K5 on `stream`.  Tables as for K1 (spheres flat; triangle
-// clusters optional: null with a count of 0); g is the image cotangent
-// [shard_rows, width, 3].  Writes slab [spp, depth, 10, shard_rows * width]
-// and cam_lanes [12, shard_rows * width] float32.  Returns
-// cudaGetLastError() after the launch, or cudaErrorInvalidValue for a shape
-// it does not take (depth past MAX_DEPTH included).
-extern "C" int rt_wavefront_grad(
-    const float *sph, int n_sph, const float *tri, int n_tri, const float *cam,
-    const float *tric_b, const int *tric_r, int n_tric, const float *g,
-    float *slab, float *cam_lanes, int width, int height,
-    unsigned int seed_word, int row_offset, int row_stride, int shard_rows,
-    int spp, int depth, float inv_spp, int parity_plane_sign, void *stream) {
-  if (width < 1 || height < 1 || shard_rows < 1 || n_sph < 1 || n_tri < 1 ||
-      spp < 1 || depth < 0 || depth > MAX_DEPTH)
-    return (int)cudaErrorInvalidValue;
+// the fields of both entry points
+GradParams make_grad_params(const float *sph, int n_sph, const float *cam,
+                            const float *g, float *slab, float *cam_lanes,
+                            int *next_tile, int width, int height,
+                            unsigned seed_word, int row_offset,
+                            int row_stride, int shard_rows, int spp,
+                            int depth, float inv_spp, const TileLayout &lay) {
   GradParams p;
   p.sph = sph;
-  p.tri = tri;
   p.cam = cam;
-  p.tric_b = tric_b;
-  p.tric_r = tric_r;
   p.g = g;
   p.slab = slab;
   p.cam_lanes = cam_lanes;
+  p.next_tile = next_tile;
   p.n_sph = n_sph;
-  p.n_tri = n_tri;
-  p.n_tric = n_tric;
   p.width = width;
   p.height = height;
   p.shard_rows = shard_rows;
@@ -731,15 +716,44 @@ extern "C" int rt_wavefront_grad(
   p.spp = spp;
   p.depth = depth;
   p.inv_spp = inv_spp;
-  const dim3 grid((width + BLOCK_W - 1) / BLOCK_W,
-                  (shard_rows + BLOCK_H - 1) / BLOCK_H);
-  if (grid.y > 65535) return (int)cudaErrorInvalidConfiguration;
+  p.lay = lay;
+  return p;
+}
+
+}  // namespace
+
+// Launch K5 on `stream`.  Tables as for K1 (spheres flat; triangle
+// clusters optional: null with a count of 0) and walk, chunks, the thread
+// layout and next_tile as for K1; g is the image cotangent
+// [shard_rows, width, 3].  Writes slab [spp, depth, 10, shard_rows * width]
+// and cam_lanes [12, shard_rows * width] float32.  Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for a shape
+// it does not take (depth past MAX_DEPTH included).
+extern "C" int rt_wavefront_grad(
+    const float *sph, int n_sph, const float *tri, int n_tri, const float *cam,
+    const float *tric_b, const int *tric_r, int n_tric, int chunks,
+    const float *g, float *slab, float *cam_lanes, int *next_tile, int width,
+    int height, unsigned int seed_word, int row_offset, int row_stride,
+    int shard_rows, int spp, int depth, float inv_spp, int parity_plane_sign,
+    int walk, int run, int tile_w, int tile_h, int tiles_x, int n_tiles,
+    int blocks, void *stream) {
+  const TileLayout lay = {run, tile_w, tile_h, tiles_x, n_tiles};
+  const bool leaves = walk == WALK_LEAVES;
+  if (width < 1 || height < 1 || shard_rows < 1 || n_sph < 1 || n_tri < 1 ||
+      spp < 1 || depth < 0 || depth > MAX_DEPTH || next_tile == nullptr ||
+      walk < WALK_NONE || walk > WALK_LEAVES ||
+      !layout_ok(lay, width, blocks) ||
+      (leaves && (parity_plane_sign || n_tric < 1 || chunks < 1 ||
+                  chunks > 64)))
+    return (int)cudaErrorInvalidValue;
+  OneLevelGradParams p;
+  p.g = make_grad_params(sph, n_sph, cam, g, slab, cam_lanes, next_tile,
+                         width, height, seed_word, row_offset, row_stride,
+                         shard_rows, spp, depth, inv_spp, lay);
+  p.tris = {tri, tric_b, tric_r, n_tri, n_tric, chunks};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (parity_plane_sign)
-    wavefront_grad_kernel<true><<<grid, THREADS, 0, s>>>(p);
-  else
-    wavefront_grad_kernel<false><<<grid, THREADS, 0, s>>>(p);
-  return (int)cudaGetLastError();
+  return (int)(parity_plane_sign ? launch_k5<true>(p, walk, blocks, s)
+                                 : launch_k5<false>(p, walk, blocks, s));
 }
 
 // Launch K5s on `stream` (the correct plane equation): spheres flat as for
@@ -763,34 +777,10 @@ extern "C" int rt_wavefront_grad_stream(
       !layout_ok(lay, width, blocks))
     return (int)cudaErrorInvalidValue;
   StreamGradParams sp;
-  GradParams &p = sp.g;
-  p.sph = sph;
-  p.tri = tri;
-  p.cam = cam;
-  p.tric_b = leafb;
-  p.tric_r = leafr;
-  p.g = g;
-  p.slab = slab;
-  p.cam_lanes = cam_lanes;
-  p.n_sph = n_sph;
-  p.n_tri = n_leaves * STREAM_LEAF_PAD;
-  p.n_tric = n_leaves;
-  p.width = width;
-  p.height = height;
-  p.shard_rows = shard_rows;
-  p.row_offset = row_offset;
-  p.row_stride = row_stride;
-  p.seed_word = seed_word;
-  p.spp = spp;
-  p.depth = depth;
-  p.inv_spp = inv_spp;
+  sp.g = make_grad_params(sph, n_sph, cam, g, slab, cam_lanes, next_tile,
+                          width, height, seed_word, row_offset, row_stride,
+                          shard_rows, spp, depth, inv_spp, lay);
   sp.walk = {tri, leafb, leafr, subb, topb, topr, n_leaves, n_tops};
-  sp.lay = lay;
-  sp.next_tile = next_tile;
-  int grid = 0;
-  const cudaError_t e = resident_grid(two_level_grad_kernel, blocks, grid);
-  if (e != cudaSuccess) return (int)e;
-  two_level_grad_kernel<<<grid, THREADS, 0,
-                          static_cast<cudaStream_t>(stream)>>>(sp);
-  return (int)cudaGetLastError();
+  return (int)launch_persistent(two_level_grad_kernel, sp, blocks,
+                                static_cast<cudaStream_t>(stream));
 }

@@ -276,14 +276,6 @@ extern "C" int rt_stream_render(
   p.tiles_x = tiles_x;
   p.n_tiles = n_tiles;
   // as many blocks as the card keeps resident, at most one per 4 tiles
-  int dev = 0, sms = 0, per_sm = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, stream_kernel,
-                                                    THREADS, 0) != cudaSuccess)
-    return (int)cudaGetLastError();
-  const int grid = min(blocks, max(per_sm * sms, 1));
-  stream_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(p);
-  return (int)cudaGetLastError();
+  return (int)launch_persistent(stream_kernel, p, blocks,
+                                static_cast<cudaStream_t>(stream));
 }

@@ -107,10 +107,12 @@ def load(csrc=CSRC_DIR) -> ctypes.CDLL:
                   ctypes.c_float)
     fn = lib.rt_wavefront_render
     fn.argtypes = [p, i, p, i, p,        # sph, n_sph, tri, n_tri, cam
-                   p, p, i, p, p, i,     # sphere / triangle clusters
-                   p, p,                 # mean, segs
+                   p, p, i, p, p, i, i,  # sphere / triangle clusters, chunks
+                   p, p, p,              # mean, segs, counter
                    i, i, u, i, i, i,     # width .. shard_rows
-                   i, i, f, i, i, p]     # spp .. parity, lowp, stream
+                   i, i, f, i, i, i,     # spp .. parity, lowp, walk
+                   i, i, i, i, i, i,     # thread layout: run .. blocks
+                   p]                    # stream
     fn.restype = ctypes.c_int
     fn = lib.rt_wavefront_render_stream
     fn.argtypes = [p, i, p, p, i,        # sph, n_sph, sphere clusters
@@ -125,10 +127,12 @@ def load(csrc=CSRC_DIR) -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     fn = lib.rt_wavefront_grad
     fn.argtypes = [p, i, p, i, p,        # sph, n_sph, tri, n_tri, cam
-                   p, p, i,              # triangle clusters
-                   p, p, p,              # g_image, slab, cam_lanes
+                   p, p, i, i,           # triangle clusters, chunks
+                   p, p, p, p,           # g_image, slab, cam_lanes, counter
                    i, i, u, i, i, i,     # width .. shard_rows
-                   i, i, f, i, p]        # spp, depth, inv_spp, parity, stream
+                   i, i, f, i, i,        # spp, depth, inv_spp, parity, walk
+                   i, i, i, i, i, i,     # thread layout: run .. blocks
+                   p]                    # stream
     fn.restype = ctypes.c_int
     fn = lib.rt_wavefront_grad_stream
     fn.argtypes = [p, i, p, p, p, p, i,  # sph, n_sph, tri, leaf bounds /

@@ -5,23 +5,25 @@ plain version.
 ``raytracer_tpu_torch/csrc/wavefront.cu``, which replace the TPU kernel
 ``raytracer_tpu/ops/pallas/wavefront.py`` ``render_linear_pallas`` /
 ``_make_kernel``: the whole path trace of a frame (or of a row band) fused
-into one launch.  K1 runs one thread per pixel: on the card it is bound by
-FP32 ALU throughput and branch divergence, not by bytes (the scene tables
-stay in L1/L2 and device memory sees one write of the image); it keeps all
-ray state in registers, gives each warp a compact 8x4 pixel tile so its
-rays take the same cluster-culling decisions, and ends a warp's bounce loop
-when none of its rays is alive.  K1-lowp is K1 with ``lowp``: the sphere
-quadratic in bfloat16 (``_sphere_loop_lowp``, the reduced-precision study
-of the JAX package), a flat scan of the sphere table that ignores its
-clusters.  K2 is the kernel of ``tri_stream``: the two-level walk of
-``_streamed_tri_walk`` over a leaf-aligned triangle table
+into one launch.  On the card K1 is bound by FP32 ALU throughput,
+occupancy and branch divergence, not by bytes (the scene tables stay in
+L1/L2 and device memory sees one write of the image).  It runs one thread
+per (pixel, sample) in the layout of ``wavefront_stream.thread_layout`` on
+persistent warps, keeps all ray state in registers, and ends a warp's
+bounce loop when none of its rays is alive; each pixel's samples are summed
+in sample order (``wavefront_stream.pixel_sum_ref``), so its image is
+bitwise what one thread per pixel gives.  Its triangle walk (``tri_walk``)
+is compiled into the instance it launches: none for a table of one padding
+column, the flat scan, or the one-level walk over ``tri_clusters``, which
+copies a passing leaf's 32-column chunks into shared memory.  K1-lowp is K1
+with ``lowp``: the sphere quadratic in bfloat16 (``_sphere_loop_lowp``, the
+reduced-precision study of the JAX package), a flat scan of the sphere
+table that ignores its clusters.  K2 is the kernel of ``tri_stream``: the
+two-level walk of ``_streamed_tri_walk`` over a leaf-aligned triangle table
 (``ops.diff.tri_stream_table``), the differentiable forward of meshes past
-the table budget.  It runs one thread per (pixel, sample) in the layout of
-``wavefront_stream.thread_layout`` on persistent warps, culls each leaf's
-32-column sub-leaves by their own boxes (``sub_bounds``) and stages a
-passing sub-leaf in shared memory; each pixel's samples are summed in
-sample order (``wavefront_stream.pixel_sum_ref``), so its image is bitwise
-what one thread per pixel gives.
+the table budget, in K1's layout; it culls each leaf's 32-column sub-leaves
+by their own boxes (``sub_bounds``) and stages a passing sub-leaf in shared
+memory.
 
 ``render_linear_ref`` is the plain PyTorch version: vectorised over pixels,
 a Python loop over primitives (K2's: over tops, a top's columns at once),
@@ -57,6 +59,8 @@ Arguments of both (the keywords of ``render_linear_pallas``):
 
 from __future__ import annotations
 
+import weakref
+
 import numpy as np
 import torch
 
@@ -64,7 +68,8 @@ from .. import tables
 from ... import rng
 
 __all__ = ["LAUNCHES", "STREAM_LAUNCHES", "LOWP_LAUNCHES", "STREAM_LEAF_PAD",
-           "LEAF_SUBS", "TOP_LEAVES_MAX", "render_linear_cuda",
+           "LEAF_SUBS", "TOP_LEAVES_MAX", "WALK_NONE", "WALK_FLAT",
+           "WALK_LEAVES", "CHUNK", "tri_walk", "render_linear_cuda",
            "render_linear_ref"]
 
 LAUNCHES = 0
@@ -76,6 +81,11 @@ LOWP_LAUNCHES = 0
 STREAM_LEAF_PAD = 128
 LEAF_SUBS = 4
 TOP_LEAVES_MAX = 16
+# K1's and K5's triangle walks (TriWalk in path_common.cuh), and the columns
+# of a one-level leaf's staged chunk; a leaf's chunks fit one 64-bit mask
+WALK_NONE, WALK_FLAT, WALK_LEAVES = 0, 1, 2
+CHUNK = 32
+MAX_LEAF_CHUNKS = 64
 
 _F32 = torch.float32
 # float32 values of the kernel's constants (wavefront.cu)
@@ -228,6 +238,9 @@ def render_linear_cuda(sph, tri, cam_vec, *, width, height,
         _launch_k2(lib, sph, tri, cam_vec, sph_clusters, tri_clusters, mean,
                    segs, seed=seed, **dict(kw, shard_rows=shard_rows))
         return mean, int(torch.sum(segs, dtype=torch.int64))
+    walk, chunks = tri_walk(tri, tri_clusters)
+    lay = layout_args(width, shard_rows, samples_per_pixel)
+    next_tile = torch.zeros((1,), dtype=torch.int32, device=device)
     sphc_b, sphc_r = sph_clusters if sph_clusters is not None else (None,
                                                                     None)
     tric_b, tric_r = tri_clusters if tri_clusters is not None else (None,
@@ -237,10 +250,11 @@ def render_linear_cuda(sph, tri, cam_vec, *, width, height,
             ptr(sph), sph.shape[1], ptr(tri), tri.shape[1], ptr(cam_vec),
             ptr(sphc_b), ptr(sphc_r), 0 if sphc_b is None else sphc_b.shape[1],
             ptr(tric_b), ptr(tric_r), 0 if tric_b is None else tric_b.shape[1],
-            ptr(mean), ptr(segs), width, height, rng.seed_word(seed),
-            row_offset, row_stride, shard_rows, samples_per_pixel, depth,
-            _inv_spp(samples_per_pixel), int(bool(parity_plane_sign)),
-            int(bool(lowp)), torch.cuda.current_stream(device).cuda_stream)
+            chunks, ptr(mean), ptr(segs), ptr(next_tile), width, height,
+            rng.seed_word(seed), row_offset, row_stride, shard_rows,
+            samples_per_pixel, depth, _inv_spp(samples_per_pixel),
+            int(bool(parity_plane_sign)), int(bool(lowp)), walk, *lay,
+            torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} (rt_wavefront_render) launch failed: "
                            f"cudaError {rc}")
@@ -249,6 +263,52 @@ def render_linear_cuda(sph, tri, cam_vec, *, width, height,
     else:
         LAUNCHES += 1
     return mean, int(torch.sum(segs, dtype=torch.int64))
+
+
+# the table tri_walk found to be one padding column, or not, last: a frame's
+# bands and a gradient pass's two kernels launch over one table, so the
+# check syncs the device once for them (an in-place change bumps the
+# tensor's version and is checked again)
+_PADDING_CHECKED = (None, -1, False)
+
+
+def _one_padding_column(tri) -> bool:
+    """Whether ``tri`` is a single column with a zero plane normal, which
+    never hits (``pack_triangles``' padding)."""
+    global _PADDING_CHECKED
+    if tri.shape[1] != 1:
+        return False
+    ref, version, result = _PADDING_CHECKED
+    if ref is None or ref() is not tri or version != tri._version:
+        result = not bool(tri[:3].any())
+        _PADDING_CHECKED = (weakref.ref(tri), tri._version, result)
+    return result
+
+
+def tri_walk(tri, tri_clusters) -> tuple[int, int]:
+    """(walk, chunks): the triangle walk of the K1 or K5 instance that a
+    launch over these tables takes (``WALK_NONE`` for a table of one
+    padding column, ``WALK_LEAVES`` over clusters, else ``WALK_FLAT``), and
+    the most 32-column chunks a cluster holds (0 without clusters)."""
+    if tri_clusters is None:
+        return (WALK_NONE if _one_padding_column(tri) else WALK_FLAT), 0
+    ranges = tri_clusters[1]
+    most = int((ranges[1] - ranges[0]).max()) if ranges.numel() else 0
+    chunks = max(-(-most // CHUNK), 1)
+    if chunks > MAX_LEAF_CHUNKS:
+        raise ValueError(f"a triangle cluster holds {most} triangles, more "
+                         f"than the {CHUNK * MAX_LEAF_CHUNKS} the one-level "
+                         f"walk stages")
+    return WALK_LEAVES, chunks
+
+
+def layout_args(width, shard_rows, samples_per_pixel) -> tuple:
+    """The (pixel, sample) thread layout of K1, K2, K5 and K5s in the C
+    entry points' order: (run, tile_w, tile_h, tiles_x, n_tiles, blocks)."""
+    from . import wavefront_stream as ws
+    lay = ws.thread_layout(width, shard_rows, samples_per_pixel)
+    return (lay.run, lay.tile_w, lay.tile_h, lay.tiles_x, lay.n_tiles,
+            lay.blocks)
 
 
 def ptr(t):
@@ -264,15 +324,13 @@ def stream_launch_args(tri, tri_clusters, tri_stream, sub_bounds, *, width,
     (run, tile_w, tile_h, tiles_x, n_tiles, blocks), and the tensors they
     point into.  Without ``sub_bounds`` each sub-leaf takes its leaf's
     box."""
-    from . import wavefront_stream as ws
     (leaf_b, leaf_r), (top_b, top_r) = tri_clusters, tri_stream
     if sub_bounds is None:
         sub_bounds = leaf_b.repeat_interleave(LEAF_SUBS, dim=1)
-    lay = ws.thread_layout(width, shard_rows, samples_per_pixel)
     walk = (ptr(tri), ptr(leaf_b), ptr(leaf_r), ptr(sub_bounds),
             leaf_b.shape[1], ptr(top_b), ptr(top_r), top_b.shape[1])
-    return walk, (lay.run, lay.tile_w, lay.tile_h, lay.tiles_x, lay.n_tiles,
-                  lay.blocks), sub_bounds
+    return walk, layout_args(width, shard_rows, samples_per_pixel), \
+        sub_bounds
 
 
 def _launch_k2(lib, sph, tri, cam_vec, sph_clusters, tri_clusters, mean,

@@ -4,18 +4,21 @@ the per-primitive winner reduction.
 ``render_grad_cuda`` launches the hand-written CUDA kernels in
 ``raytracer_tpu_torch/csrc/wavefront_bwd.cu``, which replace the TPU kernel
 ``raytracer_tpu/ops/pallas/wavefront_bwd.py`` ``render_grad_pallas`` /
-``_make_bwd_kernel``: the adjoint of K1's path trace.  K5s is the kernel of
+``_make_bwd_kernel``: the adjoint of K1's path trace, in K1's thread
+layout (one thread per (pixel, sample), persistent warps) with K1's
+triangle walk (``wavefront.tri_walk``: none, flat, or the one-level walk
+over ``tri_clusters`` with warp-staged chunks).  K5s is the kernel of
 ``tri_stream``: K2's two-level walk over the leaf-aligned table (with K2's
-optional ``sub_bounds``), winners still the packed columns, in K2's thread
-layout (one thread per (pixel, sample), persistent warps, warp-staged
-sub-leaves).  Per pixel and sample it re-traces the path storing 22
-residual planes per bounce, then sweeps the bounces in reverse propagating
-the image cotangent by hand (implicit ``dt`` for spheres, direct ``dt``
-for triangles under either plane sign, the normalize, diffuse, metal,
-dielectric and sky adjoints, and the camera adjoint).  It writes, per
-bounce and lane, the winner's id and 9 gradients (a "slab"), and per pixel
-the 12 camera cotangents summed over the samples in sample order (K5s sums
-its (pixel, sample) lanes so: ``wavefront_stream.pixel_sum_ref``).
+optional ``sub_bounds``, warp-staged sub-leaves), winners still the packed
+columns, in the same layout.  Per pixel and sample it re-traces the path
+storing 22 residual planes per bounce, then sweeps the bounces in reverse
+propagating the image cotangent by hand (implicit ``dt`` for spheres,
+direct ``dt`` for triangles under either plane sign, the normalize,
+diffuse, metal, dielectric and sky adjoints, and the camera adjoint).  It
+writes, per bounce and lane, the winner's id and 9 gradients (a "slab"),
+and per pixel the 12 camera cotangents summed over the samples in sample
+order, across a pixel's (pixel, sample) lanes
+(``wavefront_stream.pixel_sum_ref``).
 
 ``render_grad_ref`` is the plain PyTorch version: vectorised over lanes,
 a list of per-bounce residual tensors and a reversed loop, in the kernel's
@@ -174,11 +177,11 @@ def grad_slab_cuda(sph, tri, g_image, cam_vec, *, width, height,
     shape = (width, height, rng.seed_word(seed), row_offset, row_stride,
              shard_rows, samples_per_pixel, depth,
              wf._inv_spp(samples_per_pixel))
+    next_tile = torch.zeros((1,), dtype=torch.int32, device=device)
     if tri_stream is not None:
         walk, lay, subs = wf.stream_launch_args(
             tri, tri_clusters, tri_stream, sub_bounds, width=width,
             shard_rows=shard_rows, samples_per_pixel=samples_per_pixel)
-        next_tile = torch.zeros((1,), dtype=torch.int32, device=device)
         with torch.cuda.device(device):
             rc = lib.rt_wavefront_grad_stream(
                 wf.ptr(sph), sph.shape[1], *walk, wf.ptr(cam_vec),
@@ -186,15 +189,18 @@ def grad_slab_cuda(sph, tri, g_image, cam_vec, *, width, height,
                 wf.ptr(next_tile), *shape, *lay, stream)
         entry = "rt_wavefront_grad_stream"
     else:
+        walk, chunks = wf.tri_walk(tri, tri_clusters)
+        lay = wf.layout_args(width, shard_rows, samples_per_pixel)
         tric_b, tric_r = (tri_clusters if tri_clusters is not None
                           else (None, None))
         with torch.cuda.device(device):
             rc = lib.rt_wavefront_grad(
                 wf.ptr(sph), sph.shape[1], wf.ptr(tri), tri.shape[1],
                 wf.ptr(cam_vec), wf.ptr(tric_b), wf.ptr(tric_r),
-                0 if tric_b is None else tric_b.shape[1], wf.ptr(g_image),
-                wf.ptr(slab), wf.ptr(cam_lanes), *shape,
-                int(bool(parity_plane_sign)), stream)
+                0 if tric_b is None else tric_b.shape[1], chunks,
+                wf.ptr(g_image), wf.ptr(slab), wf.ptr(cam_lanes),
+                wf.ptr(next_tile), *shape, int(bool(parity_plane_sign)),
+                walk, *lay, stream)
         entry = "rt_wavefront_grad"
     if rc != 0:
         raise RuntimeError(f"{name} ({entry}) launch failed: cudaError {rc}")

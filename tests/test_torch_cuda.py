@@ -497,3 +497,68 @@ def test_k1_lowp_matches_plain_version(dev, name):
     pm, ps = wfc.render_linear_ref(*args, **kw)
     assert torch.isfinite(km).all() and ks == ps
     assert float((km - pm).abs().max()) <= TOL
+
+
+# ---------------------------------------------------------------------------
+# K1, K1-lowp and K5 in the (pixel, sample) layout: each triangle walk
+# against its plain version and bitwise the parent's one thread a pixel
+# (runs of one sample: 8x4 pixels a warp, each thread looping its samples)
+# ---------------------------------------------------------------------------
+
+WALK_CASES = {"default_world": "none", "ffi_example_world": "flat",
+              "mesh_scene": "leaves"}
+LKW = dict(width=40, height=23, samples_per_pixel=5, depth=6, seed=2,
+           shard_rows=9, row_offset=3, row_stride=2)
+
+
+def _walk_of(tri, tcl):
+    walk, _ = wfc.tri_walk(tri, tcl)
+    return {wfc.WALK_NONE: "none", wfc.WALK_FLAT: "flat",
+            wfc.WALK_LEAVES: "leaves"}[walk]
+
+
+def _one_thread_a_pixel(monkeypatch):
+    from raytracer_tpu_torch.ops.cuda import wavefront_stream as ws
+    monkeypatch.setattr(ws, "MAX_RUN", 1)
+    assert ws.thread_layout(40, 9, 5)[:3] == (1, 8, 4)
+
+
+@pytest.mark.parametrize("lowp", [False, True])
+@pytest.mark.parametrize("name", sorted(WALK_CASES))
+def test_k1_walks_match_plain_and_one_thread_a_pixel(dev, name, lowp,
+                                                     monkeypatch):
+    args, kw = _inputs(name, dev)
+    assert _walk_of(args[1], kw["tri_clusters"]) == WALK_CASES[name]
+    kw = dict(kw, lowp=lowp, **LKW)
+    km, ks = wfc.render_linear_cuda(*args, **kw)
+    pm, ps = wfc.render_linear_ref(*args, **kw)
+    assert torch.isfinite(km).all() and ks == ps
+    assert float((km - pm).abs().max()) <= TOL
+    _one_thread_a_pixel(monkeypatch)
+    om, os_ = wfc.render_linear_cuda(*args, **kw)
+    assert torch.equal(km, om) and ks == os_
+
+
+@pytest.mark.parametrize("name", sorted(WALK_CASES))
+def test_k5_walks_match_plain_and_one_thread_a_pixel(dev, name,
+                                                     monkeypatch):
+    from raytracer_tpu_torch.ops.cuda import wavefront_bwd as wb
+    (sph, tri, g, cv), kw = _grad_inputs(name, dev)
+    assert _walk_of(tri, kw["tri_clusters"]) == WALK_CASES[name]
+    shape = dict(LKW, samples_per_pixel=3, depth=4)
+    g = g[:shape["shard_rows"], :shape["width"]].contiguous()
+    kslab, kcam = wb.grad_slab_cuda(sph, tri, g, cv, **shape, **kw)
+    pslab, pcam = wb.grad_slab_ref(sph, tri, g, cv, **shape, **kw)
+    assert torch.equal(kslab[:, :, wb.GP_WIN], pslab[:, :, wb.GP_WIN])
+    assert (pslab[:, :, wb.GP_WIN] >= 0).any()
+    S, T = sph.shape[1], tri.shape[1]
+    for got, want in zip(wb.reduce_slab(kslab, kcam, S, T),
+                         wb.reduce_slab(pslab, pcam, S, T)):
+        assert float((got - want).abs().max()) <= \
+            TOL * float(want.abs().max()) + 1e-7
+    _one_thread_a_pixel(monkeypatch)
+    oslab, ocam = wb.grad_slab_cuda(sph, tri, g, cv, **shape, **kw)
+    # zeros as +0: a dead lane writes 0 x its stale hit, whose sign follows
+    # its warp's walk
+    assert torch.equal(kslab + 0.0, oslab + 0.0)
+    assert torch.equal(kcam, ocam)
