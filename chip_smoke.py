@@ -51,8 +51,8 @@ if any phase fails:
      three meshes and a 37x21 mesh-1292 frame at 3 spp (Morton padding),
      node_exit off bitwise on; bar as 3c;
   3f. K1-lowp vs its plain version at 64x36, 4 spp, depth 8, parity sign,
-     on the default world and the two-sphere unit scene: equal segments,
-     max|diff| <= 1e-5;
+     on the default world, the two-sphere unit scene and a three-sphere
+     scene (an odd count: the packed table's padding sphere): bitwise;
   4. the main path: ``cli.main`` at width 512, 64 spp, depth 8, checked
      by the launch counters (one K1 launch per row band, no K5) and
      against the plain version's framebuffer; K1's 16 bands replayed, with
@@ -140,7 +140,7 @@ if any phase fails:
      the three meshes; K6 vs its plain version at (A) (67.1M rays, past
      2^24; bitwise), with both versions' bounce times and K6's bound
      there; K1-lowp vs K1 at the lowp study's frame with both times, the
-     plain version's and PSNR against float32.
+     plain version's (held bitwise) and PSNR against float32.
 
 After the phases a line sums each of the eight kernels' device time over
 this run's main-path launches (launches x the time at their shapes; K1's
@@ -156,20 +156,27 @@ own camera, and OBJ-10k 512x288; the (A) and (B) frames with their
 bounces, sorts + gathers, assembly, slots and a hash of each framebuffer),
 K1 at the headline frame and at the CLI's 16 bands (``cli.main``'s own
 calls, each replayed; the bands held bitwise against one whole-frame call,
-the framebuffer hashed), K1-lowp at the lowp study's frame, K1 and K5 at the default world's and OBJ-10k's
-gradient passes, and the 164k gradient pass with its K2 and K5s (their
-calls in each pass recorded and replayed; hashes of every image and its
-segments, slab with zeros as +0, and camera lanes), for the port in the
-checkout TREE, with its ptxas figures, using only entry points every
+the framebuffer hashed), K1-lowp at the lowp study's frame, K1 and K5 at
+the default world's and OBJ-10k's gradient passes, the 164k gradient pass
+with its K2 and K5s (their calls in each pass recorded and replayed;
+hashes of every image and its segments, slab with zeros as +0, and camera
+lanes), and K3 at its main path's frames (phase 5c's capped frames of the
+three meshes and the API session's OBJ-10k frame, with each frame's
+passes and regroups by CUDA events and a hash of each image and its
+segments), for the port in the checkout TREE, with its ptxas figures,
+using only entry points every
 version of the port has; run it on an older checkout (``git archive``
 unpacked under ``build/``) and on this one in turns, then ``python3
 chip_smoke.py --compare-times OUT...`` prints them side by side and fails
 unless every run's outputs are bitwise alike.  ``python3 chip_smoke.py
---parts OUT.json`` measures what each part of the K4, K6, K2, K5s, K1 and
-K5 designs buys on this checkout (copies of csrc/ built with a part
-switched off: the staged tiles; without sub-leaf bounds; K6's live
-prefix; K5s's register cap; K1's and K5's runs of one sample, the
-one-thread-a-pixel layout).
+--parts OUT.json [PART ...]`` measures what each part of the K4 and K6
+("k4k6"), K2 and K5s ("k2"), K1 and K5 ("k1"), K3 ("k3") and K1-lowp
+("lowp") designs buys on this checkout, all parts unless some are named
+(copies of csrc/ built with a part switched off: the staged tiles;
+without sub-leaf bounds; K6's live prefix; K5s's register cap; K1's and
+K5's runs of one sample, the one-thread-a-pixel layout; K3's dead-warp
+skip; K1-lowp's packed stage against per-operation conversions and
+scalar bfloat16).
 """
 
 from __future__ import annotations
@@ -253,7 +260,8 @@ PTXAS_KERNELS = {
     "K1-lowp flat triangles, parity sign": "wavefront_kernelILb1ELb1ELi1E",
     "K1-lowp leaves": "wavefront_kernelILb0ELb1ELi2E",
     "K2": "16two_level_kernel",
-    "K3": "binned_pass_kernel",
+    "K3 primary": "binned_pass_kernelILb1E",
+    "K3 later passes": "binned_pass_kernelILb0E",
     "K4": "13stream_kernel",
     "K5 spheres only (default-world pass)": "wavefront_grad_kernelILb1ELi0E",
     "K5 spheres only, correct sign": "wavefront_grad_kernelILb0ELi0E",
@@ -1980,6 +1988,15 @@ UNIT_SCENE = ("camera origin 0.0 0.0 0.0 aspect 1.0;\n"
               "material D : Diffuse color 0.4 0.6 0.3;\n"
               "sphere center -0.6 0.0 -1.6 radius 0.5 material M;\n"
               "sphere center 0.6 0.1 -1.4 radius 0.45 material D;\n")
+# the unit scene with a third sphere: an odd count, so K1-lowp's packed
+# table carries its padding sphere
+THREE_SCENE = ("camera origin 0.0 0.0 0.0 aspect 1.0;\n"
+               "material M : Metal color 0.9 0.8 0.7 fuzz 0.1;\n"
+               "material D : Diffuse color 0.4 0.6 0.3;\n"
+               "material G : Dielectric ir 1.5;\n"
+               "sphere center -0.6 0.0 -1.6 radius 0.5 material M;\n"
+               "sphere center 0.6 0.1 -1.4 radius 0.45 material D;\n"
+               "sphere center 0.0 -0.3 -1.1 radius 0.2 material G;\n")
 # K1-lowp's sphere test: 14 bfloat16 operations (centre difference, half_b,
 # c) and 5 float32 ones (the discriminant, its root, the two roots); the
 # bf16 ones counted at the H100 SXM's non-tensor bf16 peak, 2x float32
@@ -2018,7 +2035,8 @@ def phase_sorted_vs_plain(rtt, scenes) -> dict:
 
 def _lowp_worlds(rtt):
     return {"default world": rtt.models.default_world(),
-            "unit scene": rtt.parse_input(UNIT_SCENE)}
+            "unit scene": rtt.parse_input(UNIT_SCENE),
+            "three spheres (odd count)": rtt.parse_input(THREE_SCENE)}
 
 
 def _lowp_args(world, dev):
@@ -2030,16 +2048,20 @@ def _lowp_args(world, dev):
 
 
 def phase_lowp_vs_plain(rtt) -> float:
+    """K1-lowp bitwise its plain version (the packed bfloat16 stage rounds
+    each operation as the plain version's torch bfloat16 ops do)."""
     from raytracer_tpu_torch.ops.cuda import wavefront as wfc
     dev = torch.device("cuda")
-    log(f"\nK1-lowp vs plain version at {LOWP_SMALL}, parity sign")
+    log(f"\nK1-lowp vs plain version at {LOWP_SMALL}, parity sign, "
+        f"bitwise")
     worst = 0.0
     for name, world in _lowp_worlds(rtt).items():
-        args, _ = _lowp_args(world, dev)
+        args, n_sph = _lowp_args(world, dev)
         kw = dict(LOWP_SMALL, parity_plane_sign=True, lowp=True)
-        worst = max(worst, compare(f"K1-lowp {name}",
-                                   wfc.render_linear_cuda(*args, **kw),
-                                   wfc.render_linear_ref(*args, **kw)))
+        worst = max(worst, compare_bitwise(
+            f"K1-lowp {name} ({n_sph} spheres)",
+            wfc.render_linear_cuda(*args, **kw),
+            wfc.render_linear_ref(*args, **kw)))
     return worst
 
 
@@ -2315,10 +2337,12 @@ def phase_sorted_throughput(rtt, smi, scenes) -> dict:
     low, lseg = wfc.render_linear_cuda(*args, **kw, lowp=True)
     plain_ms, plain = _sync_ms(lambda: wfc.render_linear_ref(*args, **kw,
                                                              lowp=True))
-    err = compare(f"K1-lowp vs plain at {LOWP_FULL}", (low, lseg), plain)
+    err = compare_bitwise(f"K1-lowp vs plain at {LOWP_FULL}", (low, lseg),
+                          plain)
     b = bound(lseg * (n_sph * (FLOPS_SPHERE_LOWP_F32 + FLOPS_SPHERE_BF16
                                * PEAK_FLOPS / PEAK_BF16_SIMT)
-                      + FLOPS_SHADE), nbytes(*args, low))
+                      + FLOPS_SHADE),
+              nbytes(*args, wfc.lowp_sphere_table(args[0]), low))
     log(f"  K1-lowp {low_ms:.3f} ms against K1 {f32_ms:.3f} ms "
         f"({f32_ms / low_ms:.3f}x; CUDA events, median of 5), plain version "
         f"{plain_ms:.3f} ms; PSNR against float32 "
@@ -2602,6 +2626,48 @@ def measure_k4_k6(rtt, smi) -> dict:
     return out
 
 
+def measure_k3(rtt) -> dict:
+    """K3's times on its main path, with only the entry points every
+    version of the port has (``ops.render_linear_fast``,
+    ``wavefront_binned.render_linear_binned``), for ``--times``: the warm
+    capped frames of phase 5c (mesh-1292, OBJ-10k and 164k at 512x512, 4
+    spp, depth 4: median of 5, after the probe) and the API session's
+    OBJ-10k frame (512x288, 4 spp, depth 4, the session's seed), each
+    frame's passes and regroups by CUDA events (the capped frame at seed 1
+    replayed), and a hash of each image with its segment count."""
+    from raytracer_tpu_torch import ops
+    from raytracer_tpu_torch.ops import tables
+    dev = torch.device("cuda")
+    out = {}
+    for label, scene, cam, shape in _k3_frames(rtt):
+        seed0 = rtt.Options().seed if shape is API_SHAPE else 0
+
+        def run(seed, scene=scene, cam=cam, shape=shape, seed0=seed0):
+            return ops.render_linear_fast(scene, cam, device=dev,
+                                          seed=seed0 + seed, **shape)
+        sec, _ = _median_seconds(run)
+        seed_img, seed_segs = run(0)
+        bad = ops.flush_binned_overflow_checks()
+        args, kw = _binned_args(ops, tables, scene, cam, dev)
+        caps = _caps(ops, scene, shape["width"], shape["height"])
+        pass_ms, regroup_ms, (mean, segs, over), _ = _k3_frame_timed(
+            args, dict(shape, seed=1, **kw), bounce_caps=caps)
+        if bad or over:
+            raise SystemExit(f"K3 {label}: {bad} overflowed frames, the "
+                             f"capped frame dropped {over} rays")
+        out[label] = dict(frame_ms=sec * 1e3, rays_per_s=segs / sec,
+                          pass_ms=pass_ms, regroup_ms=regroup_ms,
+                          caps=list(caps), hash=_sha(mean), segs=segs,
+                          frame_hash=_sha(seed_img), frame_segs=seed_segs)
+        log(f"  K3 {label} {shape}: frame {sec * 1e3:.3f} ms median of 5 "
+            f"(capped, after the probe), {segs / sec:.6e} rays/s; passes "
+            f"{[round(x, 3) for x in pass_ms]} = {sum(pass_ms):.3f} ms, "
+            f"regroups {[round(x, 3) for x in regroup_ms]} = "
+            f"{sum(regroup_ms):.3f} ms (CUDA events, replayed); image "
+            f"{out[label]['hash'][:16]}, {segs} segments")
+    return out
+
+
 # the staging study: K4 and K6 with their tile fills skipped and the
 # staged test reading the table instead (path_common.cuh patched in a copy
 # of csrc/ under build/): every vote, mask and re-vote as shipped
@@ -2639,6 +2705,99 @@ def _unstaged_lib():
     """The kernels with UNSTAGED_PATCHES."""
     return _study_lib("unstaged_study",
                       {"path_common.cuh": UNSTAGED_PATCHES})
+
+
+# the K3 study: the dead-warp skip off (every warp takes the closest hit)
+K3_NO_SKIP = ("  if (__any_sync(FULL_MASK, alive)) {\n    sphere_hits(",
+              "  if (true) {\n    sphere_hits(")
+# the K1-lowp study: its sphere stage as per-operation conversions (each
+# bfloat16 operation a float32 one rounded through a bfloat16 conversion
+# and back, one sphere at a time from the float32 table), and as scalar
+# native bfloat16 instructions (one sphere an instruction, from the packed
+# table)
+LOWP_PAIRS = """\
+    const int pairs = (n_sph + 1) >> 1;
+    for (int k = 0; k < pairs; ++k)
+      sphere_pair_lowp(spl, sph, n_sph, k, o2, d2, h);"""
+# the study stages go just before the sphere stage in path_common.cuh
+LOWP_ANCHOR = "// closest sphere hit (common.rs:60-98)"
+LOWP_BF16R_STAGE = """\
+__device__ __forceinline__ float bf16r(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+__device__ __forceinline__ void sphere_step_lowp(const float *__restrict__ sph,
+                                                 int ns, int si, const Ray &rl,
+                                                 Hit &h) {
+  const float cx = sph[SPH_CX * ns + si];
+  const float cy = sph[SPH_CY * ns + si];
+  const float cz = sph[SPH_CZ * ns + si];
+  const float r2 = sph[SPH_R2 * ns + si];
+  const float ocx = bf16r(rl.ox - bf16r(cx));
+  const float ocy = bf16r(rl.oy - bf16r(cy));
+  const float ocz = bf16r(rl.oz - bf16r(cz));
+  const float half_b = bf16r(bf16r(bf16r(ocx * rl.dx) + bf16r(ocy * rl.dy)) +
+                             bf16r(ocz * rl.dz));
+  const float cc = bf16r(bf16r(bf16r(bf16r(ocx * ocx) + bf16r(ocy * ocy)) +
+                               bf16r(ocz * ocz)) -
+                         bf16r(r2));
+  sphere_root_lowp(sph, ns, si, half_b, cc, r2 > 0.0f ? 0.0f : -1.0f, h);
+}
+"""
+LOWP_BF16R_LOOP = """\
+    const Ray rl = {bf16r(r.ox), bf16r(r.oy), bf16r(r.oz),
+                    bf16r(r.dx), bf16r(r.dy), bf16r(r.dz)};
+    for (int si = 0; si < n_sph; ++si)
+      sphere_step_lowp(sph, n_sph, si, rl, h);"""
+LOWP_SCALAR_STAGE = """\
+#define BF_OP(name, op)                                              \\
+  __device__ __forceinline__ unsigned short name(unsigned short a,   \\
+                                                 unsigned short b) { \\
+    unsigned short d;                                                \\
+    asm(op " %0, %1, %2;" : "=h"(d) : "h"(a), "h"(b));               \\
+    return d;                                                        \\
+  }
+BF_OP(bf_add, "add.rn.bf16")
+BF_OP(bf_sub, "sub.rn.bf16")
+BF_OP(bf_mul, "mul.rn.bf16")
+__device__ __forceinline__ float bf_f(unsigned short v) {
+  return __uint_as_float((unsigned)v << 16);
+}
+__device__ __forceinline__ void sphere_one_lowp(const uint4 *__restrict__ spl,
+                                                const float *__restrict__ sph,
+                                                int ns, int si,
+                                                const unsigned o2[3],
+                                                const unsigned d2[3],
+                                                Hit &h) {
+  const uint4 c = spl[si >> 1];
+  const int sh = (si & 1) * 16;
+  const unsigned short cx = c.x >> sh, cy = c.y >> sh, cz = c.z >> sh,
+                       r2 = c.w >> sh;
+  const unsigned short ox = o2[0], oy = o2[1], oz = o2[2];
+  const unsigned short dx = d2[0], dy = d2[1], dz = d2[2];
+  const unsigned short ocx = bf_sub(ox, cx), ocy = bf_sub(oy, cy),
+                       ocz = bf_sub(oz, cz);
+  const unsigned short hb =
+      bf_add(bf_add(bf_mul(ocx, dx), bf_mul(ocy, dy)), bf_mul(ocz, dz));
+  const unsigned short cc = bf_sub(
+      bf_add(bf_add(bf_mul(ocx, ocx), bf_mul(ocy, ocy)), bf_mul(ocz, ocz)),
+      r2);
+  sphere_root_lowp(sph, ns, si, bf_f(hb), bf_f(cc), bf_f(r2), h);
+}
+"""
+LOWP_SCALAR_LOOP = """\
+    for (int si = 0; si < n_sph; ++si)
+      sphere_one_lowp(spl, sph, n_sph, si, o2, d2, h);"""
+# K3 without its dead-warp skip and K1-lowp as conversions in one
+# build (each measurement runs one kernel), K1-lowp as scalar bfloat16 in
+# another
+K3_LOWP_STUDIES = {
+    "k3_no_skip_lowp_bf16r": {
+        "wavefront_binned.cu": (K3_NO_SKIP,),
+        "path_common.cuh": ((LOWP_ANCHOR, LOWP_BF16R_STAGE + LOWP_ANCHOR),
+                            (LOWP_PAIRS, LOWP_BF16R_LOOP))},
+    "lowp_scalar": {
+        "path_common.cuh": ((LOWP_ANCHOR, LOWP_SCALAR_STAGE + LOWP_ANCHOR),
+                            (LOWP_PAIRS, LOWP_SCALAR_LOOP))}}
 
 
 # the residual study: K5s with a minimum of N resident blocks an SM
@@ -2740,6 +2899,89 @@ def measure_parts_k1(rtt, libs) -> dict:
     return out
 
 
+def _k3_frames(rtt):
+    """K3's main-path frames: phase 5c's three meshes at 512x512, 4 spp,
+    depth 4, and the API session's OBJ-10k frame (512x288)."""
+    scenes = mesh_scenes(rtt)
+    frames = [(label, scene, cam, MESH_FULL)
+              for label, (scene, cam) in scenes.items()]
+    frames.append(("OBJ-10k session", *scenes["OBJ-10k"], API_SHAPE))
+    return frames
+
+
+def measure_parts_k3(rtt, libs) -> dict:
+    """What each part of K3's design buys on its main path's frames (each
+    frame capped as its probe set it, at seed 1; each pass replayed by CUDA
+    events): the variants of ``libs`` (as shipped first and last, for the
+    noise; unstaged; without the dead-warp skip); every frame bitwise alike
+    across the variants."""
+    from raytracer_tpu_torch import ops
+    from raytracer_tpu_torch.ops import tables
+    from raytracer_tpu_torch.ops.cuda import build
+    dev = torch.device("cuda")
+    calls = []
+    for label, scene, cam, shape in _k3_frames(rtt):
+        ops.render_linear_fast(scene, cam, device=dev, seed=1, **shape)
+        args, kw = _binned_args(ops, tables, scene, cam, dev)
+        calls.append((label, args, dict(shape, seed=1, **kw),
+                      _caps(ops, scene, shape["width"], shape["height"])))
+    real_load = build.load
+    out, hashes = {}, {}
+    log("\nK3 parts at its main path's frames")
+    try:
+        for name, lib in libs:
+            build.load = lambda csrc=None, lib=lib: lib
+            for label, args, kw, caps in calls:
+                pass_ms, regroup_ms, res, _ = _k3_frame_timed(
+                    args, kw, bounce_caps=caps)
+                hashes.setdefault(label, set()).add((_sha(res[0]), res[1],
+                                                     res[2]))
+                out[f"{name}: {label}"] = dict(pass_ms=pass_ms,
+                                               regroup_ms=regroup_ms)
+                log(f"  K3 {name}, {label}: passes "
+                    f"{[round(x, 3) for x in pass_ms]} = "
+                    f"{sum(pass_ms):.3f} ms")
+    finally:
+        build.load = real_load
+    same = all(len(h) == 1 for h in hashes.values())
+    log(f"  frames bitwise alike across the variants: {same}")
+    if not same:
+        raise SystemExit("the K3 design-part variants' frames differ")
+    return out
+
+
+def measure_parts_lowp(rtt, libs) -> dict:
+    """What K1-lowp's packed stage buys at the lowp study's frame (default
+    world 512x512, 64 spp, depth 8, parity sign): the variants of ``libs``
+    (packed first and last; per-operation conversions; scalar
+    native bfloat16), with K1's float32 time beside them; every frame
+    bitwise alike."""
+    from raytracer_tpu_torch.ops.cuda import build
+    from raytracer_tpu_torch.ops.cuda import wavefront as wfc
+    dev = torch.device("cuda")
+    args, _ = _lowp_args(rtt.models.default_world(), dev)
+    kw = dict(LOWP_FULL, seed=1, parity_plane_sign=True)
+    out = {"K1 float32": _event_ms(lambda: wfc.render_linear_cuda(*args,
+                                                                  **kw))}
+    real_load, hashes = build.load, set()
+    log(f"\nK1-lowp parts at the lowp study's frame {LOWP_FULL}; K1 "
+        f"float32 {out['K1 float32']:.3f} ms")
+    try:
+        for name, lib in libs:
+            build.load = lambda csrc=None, lib=lib: lib
+            out[name] = _event_ms(lambda: wfc.render_linear_cuda(
+                *args, **kw, lowp=True))
+            img, segs = wfc.render_linear_cuda(*args, **kw, lowp=True)
+            hashes.add((_sha(img), segs))
+            log(f"  K1-lowp {name}: {out[name]:.3f} ms")
+    finally:
+        build.load = real_load
+    log(f"  frames bitwise alike across the variants: {len(hashes) == 1}")
+    if len(hashes) != 1:
+        raise SystemExit("the K1-lowp design-part variants differ")
+    return out
+
+
 def measure_parts(rtt, smi, staged, unstaged) -> dict:
     """What each part of the K4 and K6 designs buys, on this checkout: K4
     at the CLI's obj= frame (one launch, 16 bands) and at OBJ-10k 512x288
@@ -2826,29 +3068,60 @@ def measure_parts(rtt, smi, staged, unstaged) -> dict:
     return out
 
 
-def parts_main(path) -> int:
-    """``--parts OUT``: measure_parts, measure_parts_k2 and
-    measure_parts_k1 on this checkout, as JSON in OUT."""
+PARTS = ("k4k6", "k2", "k1", "k3", "lowp")
+
+
+def parts_main(path, names=PARTS) -> int:
+    """``--parts OUT [PART ...]``: of measure_parts ("k4k6"),
+    measure_parts_k2 ("k2"), measure_parts_k1 ("k1"), measure_parts_k3
+    ("k3") and measure_parts_lowp ("lowp") those named (all by default) on
+    this checkout, as JSON in OUT."""
     from raytracer_tpu_torch.ops.cuda import build
+    if not names or set(names) - set(PARTS):
+        raise SystemExit(f"--parts takes parts of {PARTS}, got {names}")
     smi = phase_device()
     rtt = import_port()
     phase_build()
     libs = [("staged", build.load()), ("unstaged", _unstaged_lib())]
-    for n in RESIDUAL_BLOCKS:
-        lib = _residual_lib(n)
-        log(f"  K5s at {n} blocks an SM:")
-        ptxas_report(Path(lib._name).parent / "ptxas.log")
-        libs.append((f"staged, K5s at {n} blocks an SM", lib))
-    out = measure_parts(rtt, smi, libs[0][1], libs[1][1])
-    out["k2"] = measure_parts_k2(rtt, libs)
-    out["k1"] = measure_parts_k1(rtt, libs)
+    out = {"gpu": smi}
+    if "k2" in names:
+        for n in RESIDUAL_BLOCKS:
+            lib = _residual_lib(n)
+            log(f"  K5s at {n} blocks an SM:")
+            ptxas_report(Path(lib._name).parent / "ptxas.log")
+            libs.append((f"staged, K5s at {n} blocks an SM", lib))
+    studies = {}
+    if {"k3", "lowp"} & set(names):
+        for name, patches in K3_LOWP_STUDIES.items():
+            studies[name] = _study_lib(name, patches)
+            log(f"  {name}:")
+            ptxas_report(Path(studies[name]._name).parent / "ptxas.log")
+    if "k4k6" in names:
+        out.update(measure_parts(rtt, smi, libs[0][1], libs[1][1]))
+    if "k2" in names:
+        out["k2"] = measure_parts_k2(rtt, libs)
+    if "k1" in names:
+        out["k1"] = measure_parts_k1(rtt, libs)
+    if "k3" in names:
+        out["k3"] = measure_parts_k3(rtt, [
+            ("shipped", libs[0][1]), ("unstaged", libs[1][1]),
+            ("no dead-warp skip", studies["k3_no_skip_lowp_bf16r"]),
+            ("shipped again", libs[0][1])])
+    if "lowp" in names:
+        out["lowp"] = measure_parts_lowp(rtt, [
+            ("packed bf16x2", libs[0][1]),
+            ("bf16r conversions",
+             studies["k3_no_skip_lowp_bf16r"]),
+            ("scalar bf16", studies["lowp_scalar"]),
+            ("packed bf16x2 again", libs[0][1])])
     Path(path).write_text(json.dumps(out))
     return 0
 
 
 def times_main(tree, path) -> int:
-    """``--times TREE OUT``: measure_k4_k6 and measure_grad_times for the
-    port in the checkout TREE, its ptxas figures, as JSON in OUT."""
+    """``--times TREE OUT``: measure_k4_k6, measure_grad_times and
+    measure_k3 for the port in the checkout TREE, its ptxas figures, as
+    JSON in OUT."""
     smi = phase_device()
     rtt = import_port(tree)
     from raytracer_tpu_torch.ops.cuda import build
@@ -2859,7 +3132,8 @@ def times_main(tree, path) -> int:
     ptxas = ptxas_report(Path(lib._name).parent / "ptxas.log",
                          required=False)
     out = measure_k4_k6(rtt, smi)
-    out.update(measure_grad_times(rtt), tree=str(tree), ptxas=ptxas)
+    out.update(measure_grad_times(rtt), k3=measure_k3(rtt), tree=str(tree),
+               ptxas=ptxas)
     Path(path).write_text(json.dumps(out))
     return 0
 
@@ -2868,8 +3142,9 @@ def compare_times_main(paths) -> int:
     """``--compare-times OLD NEW ...``: the runs' times side by side; fails
     unless every run's (A), (B), CLI obj= and CLI framebuffers, K1's
     images and segments at the headline, the CLI's 16 bands and the two
-    passes, K1-lowp's at its study frame, K5's slabs (zeros as +0) and camera lanes there, and the 164k
-    pass's image, segments, slab and camera lanes hash alike."""
+    passes, K1-lowp's at its study frame, K5's slabs (zeros as +0) and
+    camera lanes there, the 164k pass's image, segments, slab and camera
+    lanes, and K3's frames (images and segments) hash alike."""
     runs = [json.loads(Path(p).read_text()) for p in paths]
     for p, r in zip(paths, runs):
         k4 = r["k4"]
@@ -2900,6 +3175,12 @@ def compare_times_main(paths) -> int:
             f"{t['OBJ-10k pass']['ms'][1]:.3f} ms; 164k pass "
             f"{k['pass_ms']:.3f} ms ({k['paths_per_s']:.6e} paths/s), K2 "
             f"{k['k2_ms']:.3f} ms, K5s {k['k5s_ms']:.3f} ms")
+    for p, r in zip(paths, runs):
+        log(f"{p}: K3 " + "; ".join(
+            f"{label} frame {x['frame_ms']:.3f} ms ({x['rays_per_s']:.6e} "
+            f"rays/s), passes {sum(x['pass_ms']):.3f} ms "
+            f"{[round(v, 3) for v in x['pass_ms']]}, regroups "
+            f"{sum(x['regroup_ms']):.3f} ms" for label, x in r["k3"].items()))
     for key in ("164k", "default-world pass", "OBJ-10k pass"):
         raw = {json.dumps(r["164k"]["slab_raw_hash"] if key == "164k" else
                           r["k1k5"][key]["digest"][1]["slab_raw"])
@@ -2924,6 +3205,10 @@ def compare_times_main(paths) -> int:
                           if k != "slab_raw"}, sort_keys=True)))
     for f in ("img_hash", "segs", "slab_hash", "cam_hash"):
         same.append((("164k", f), lambda r, f=f: r["164k"][f]))
+    for label in runs[0]["k3"]:
+        for f in ("hash", "segs", "frame_hash", "frame_segs"):
+            same.append(((f"K3 {label}", f),
+                         lambda r, n=label, f=f: r["k3"][n][f]))
     for key, get in same:
         vals = {get(r) for r in runs}
         log(f"  {key[0]} {key[1]}: "
@@ -2939,7 +3224,7 @@ def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] == "--compare-times":
         return compare_times_main(sys.argv[2:])
     if len(sys.argv) > 1 and sys.argv[1] == "--parts":
-        return parts_main(sys.argv[2])
+        return parts_main(sys.argv[2], tuple(sys.argv[3:]) or PARTS)
     smi = phase_device()
     rtt = import_port()
     phase_build()

@@ -13,11 +13,13 @@
 // triangle steps with their tie rules (spheres need a strictly smaller t,
 // triangles win ties), the sphere stage, the normal fix-ups, the
 // unit-sphere draw, the material scatter and the bounce bookkeeping; and
-// for K4, K6, K2 and K5s the warp-staged sub-leaf walk, for K1 and K5 its
-// one-level form over leaf chunks, and for K1, K4, K2, K5 and K5s the
-// (pixel, sample) thread layout, its persistent-warp tile loop and the
-// sample-order pixel sum across a warp of such lanes.  All files are
-// built with -fmad=false, so each expression rounds as written.
+// for K4, K3, K6, K2 and K5s the warp-staged sub-leaf walk (K3 and K6 one
+// top at a time through top_staged_walk), for K1 and K5 its one-level form
+// over leaf chunks, K1-lowp's packed bfloat16 sphere stage, and for K1,
+// K4, K2, K5 and K5s the (pixel, sample) thread layout, its
+// persistent-warp tile loop and the sample-order pixel sum across a warp of
+// such lanes.  All files are built with -fmad=false, so each expression
+// rounds as written.
 
 #pragma once
 
@@ -309,7 +311,7 @@ __device__ __forceinline__ void tri_step(const float *__restrict__ tri, int nt,
   }
 }
 
-// ---- warp-staged sub-leaves (K4, K6, K2 and K5s; chunks of K1 and K5) ----
+// ---- warp-staged sub-leaves (K4, K3, K6, K2, K5s; chunks of K1 and K5) ----
 // A warp whose vote passes a 32-column sub-leaf copies the sub-leaf's 16
 // test rows (TRI_NX .. edge 2's w: 2 KB) into a shared-memory tile with
 // cp.async, transposed: triangle j's rows sit at tile[j * STAGE_STRIDE ..],
@@ -350,7 +352,7 @@ __device__ __forceinline__ void stage_wait() {
 // tri_step on staged triangle j of tile (column ti of tri for a winner's
 // material rows): the same operations in the same order, on the test rows
 // read as four 16-byte loads.  tri_step itself stays as it is, so the
-// kernels that read the table directly (K3, the flat scans of K1 and K5)
+// kernels that read the table directly (the flat scans of K1 and K5)
 // compile as before.
 template <bool PARITY, bool TRACK>
 __device__ __forceinline__ void tri_step_staged(const float *tile, int j,
@@ -448,6 +450,53 @@ __device__ __forceinline__ void staged_sub_walk(Mask mask, int per_parent,
     cur = nxt;
     buf ^= 1;
   }
+}
+
+// ---- the per-bounce mesh engines' top node (K3 and K6) ----
+// ops/tables.py build_tri_sorted_tables: a top spans at most
+// MESH_TOP_GROUPS 128-column groups of MESH_GROUP_SUBS 32-column sub-leaves
+// (sub-leaf li in columns [32 li, 32 li + 32)), so its sub-leaves fit one
+// 32-bit mask (the wrappers check the ranges)
+constexpr int MESH_GROUP_SUBS = 4;
+constexpr int MESH_TOP_GROUPS = 8;
+static_assert(MESH_TOP_GROUPS * MESH_GROUP_SUBS <= 32,
+              "a top's sub-leaves fit top_staged_walk's 32-bit mask");
+
+// One passing top of K3's or K6's walk: its groups [g0, g1) voted
+// (group_ok(g)) and each passing group's sub-leaves voted (sub_ok(li)) once
+// into a mask, then staged_sub_walk tests the masked sub-leaves in order,
+// each re-voted (and each later group at its first masked sub-leaf), from
+// the warp's `tiles`: the triangles, sub-leaves and their order of the
+// sequential walk (group by group, sub-leaf by sub-leaf, each vote at the
+// warp's hits so far), so the hits and ties are its own.  The two engines
+// differ only in the bound test the votes make (K3: AABBs, aabb_test; K6:
+// bounding spheres, bound_test).  tri (24, n_cols) is the sub-leaf-aligned
+// table, subn each sub-leaf's triangle count; every lane calls.
+template <class GroupOk, class SubOk>
+__device__ __forceinline__ void top_staged_walk(
+    int g0, int g1, const float *__restrict__ tri, int n_cols,
+    const int *__restrict__ subn, const Ray &r, Hit &h, float *tiles,
+    int lane, GroupOk group_ok, SubOk sub_ok) {
+  const int s0 = g0 * MESH_GROUP_SUBS;
+  unsigned mask = 0u;
+  for (int g = g0; g < g1; ++g) {
+    if (!group_ok(g)) continue;
+    for (int k = 0; k < MESH_GROUP_SUBS; ++k)
+      if (sub_ok(g * MESH_GROUP_SUBS + k))
+        mask |= 1u << ((g - g0) * MESH_GROUP_SUBS + k);
+  }
+  staged_sub_walk(
+      mask, MESH_GROUP_SUBS, tiles, [&](int q) { return group_ok(g0 + q); },
+      [&](int s) { return sub_ok(s0 + s); },
+      [&](int s, float *tile) {
+        stage_sub_leaf(tile, tri, n_cols, (s0 + s) * STAGE_COLS, lane);
+      },
+      [&](int s, const float *tile) {
+        const int li = s0 + s, n = subn[li];
+        for (int j = 0; j < n; ++j)
+          tri_step_staged<false, false>(tile, j, tri, n_cols,
+                                        li * STAGE_COLS + j, r, h, 0.0f);
+      });
 }
 
 // K1's sample-order pixel sum (acc = acc + c over samples 0 .. spp - 1,
@@ -765,33 +814,59 @@ __device__ __forceinline__ Hit no_hit() {
   return h;
 }
 
-// float32 -> the nearest bfloat16 (ties to even) -> float32: the rounding
-// of one bfloat16 operation computed in float32, as PyTorch's bf16 ops do
-__device__ __forceinline__ float bf16r(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
+// ---- K1-lowp's packed bfloat16 sphere stage ----
+// The packed table (ops/cuda/wavefront.py lowp_sphere_table): for each pair
+// of spheres (2k, 2k + 1) one 16-byte uint4 of four bfloat16x2 words, cx,
+// cy, cz and r^2, sphere 2k in each word's low half, every value the
+// float32 table's rounded once to bfloat16 (ties to even); r^2 is -1 for a
+// sphere whose float32 r^2 is not > 0 and for the padding sphere of an odd
+// count, so its `ok` fails and it never wins.
+//
+// Each packed operation is one add / sub / mul.rn.bf16x2 instruction: a
+// correctly rounded bfloat16 result in each half, never contracted into an
+// FMA.  Its operands are bfloat16 values, and float32's 24-bit significand
+// is >= 2 x 8 + 2 bits, so the float32 operation rounded to bfloat16 (the
+// plain version's torch bf16 op) is the same value: no double-rounding
+// error.
+__device__ __forceinline__ unsigned bf2_add(unsigned a, unsigned b) {
+  unsigned d;
+  asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ unsigned bf2_sub(unsigned a, unsigned b) {
+  unsigned d;
+  asm("sub.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ unsigned bf2_mul(unsigned a, unsigned b) {
+  unsigned d;
+  asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
 }
 
-// one step of _sphere_loop_lowp's body (K1-lowp): the centre difference,
-// half_b and c in bfloat16 (rl: the ray rounded to bfloat16), each
-// operation rounded once in the Pallas order, then upcast; the root
-// selection and the closest-hit compare in float32, as sphere_step
-__device__ __forceinline__ void sphere_step_lowp(const float *__restrict__ sph,
-                                                 int ns, int si, const Ray &rl,
+// x rounded to bfloat16 (ties to even), in both halves of a word
+__device__ __forceinline__ unsigned bf2_splat(float x) {
+  const unsigned b = __bfloat16_as_ushort(__float2bfloat16_rn(x));
+  return (b << 16) | b;
+}
+
+// the low / high half of a bfloat16x2 word as float32 (exact)
+__device__ __forceinline__ float bf2_lo(unsigned w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf2_hi(unsigned w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+
+// the root selection and the closest-hit compare of _sphere_loop_lowp in
+// float32, as sphere_step: sphere si with half_b, c and the packed r^2
+// upcast; a winner's centre and material from the float32 table
+__device__ __forceinline__ void sphere_root_lowp(const float *__restrict__ sph,
+                                                 int ns, int si, float half_b,
+                                                 float cc, float r2,
                                                  Hit &h) {
-  const float cx = sph[SPH_CX * ns + si];
-  const float cy = sph[SPH_CY * ns + si];
-  const float cz = sph[SPH_CZ * ns + si];
-  const float r2 = sph[SPH_R2 * ns + si];
-  const float ocx = bf16r(rl.ox - bf16r(cx));
-  const float ocy = bf16r(rl.oy - bf16r(cy));
-  const float ocz = bf16r(rl.oz - bf16r(cz));
-  const float half_b = bf16r(bf16r(bf16r(ocx * rl.dx) + bf16r(ocy * rl.dy)) +
-                             bf16r(ocz * rl.dz));
-  const float cc = bf16r(bf16r(bf16r(bf16r(ocx * ocx) + bf16r(ocy * ocy)) +
-                               bf16r(ocz * ocz)) -
-                         bf16r(r2));
   const float disc = half_b * half_b - cc;
-  const bool ok = (disc >= 0.0f) && (r2 > 0.0f);
+  const bool ok = (disc >= 0.0f) && (r2 >= 0.0f);
   const float sq = sqrtf(fmaxf(disc, 0.0f));
   const float root1 = -half_b - sq;
   const float root2 = -half_b + sq;
@@ -799,9 +874,9 @@ __device__ __forceinline__ void sphere_step_lowp(const float *__restrict__ sph,
   t = ok ? t : BIG;
   if (t < h.t) {
     h.t = t;
-    h.nx = cx;
-    h.ny = cy;
-    h.nz = cz;
+    h.nx = sph[SPH_CX * ns + si];
+    h.ny = sph[SPH_CY * ns + si];
+    h.nz = sph[SPH_CZ * ns + si];
     h.kind = sph[SPH_KIND * ns + si];
     h.ar = sph[SPH_AR * ns + si];
     h.ag = sph[SPH_AG * ns + si];
@@ -811,22 +886,55 @@ __device__ __forceinline__ void sphere_step_lowp(const float *__restrict__ sph,
   }
 }
 
+// two steps of _sphere_loop_lowp's body (K1-lowp), spheres 2k and 2k + 1 of
+// the packed table at once: oc = o - c, half_b = (ocx dx + ocy dy) + ocz dz
+// and c = ((ocx^2 + ocy^2) + ocz^2) - r^2 as packed bfloat16 operations in
+// the Pallas order (o2, d2: the ray rounded to bfloat16, splat), then each
+// sphere's roots in float32, 2k before 2k + 1, as the flat scan takes them
+__device__ __forceinline__ void sphere_pair_lowp(const uint4 *__restrict__ spl,
+                                                 const float *__restrict__ sph,
+                                                 int ns, int k,
+                                                 const unsigned o2[3],
+                                                 const unsigned d2[3],
+                                                 Hit &h) {
+  const uint4 c = spl[k];
+  const unsigned ocx = bf2_sub(o2[0], c.x);
+  const unsigned ocy = bf2_sub(o2[1], c.y);
+  const unsigned ocz = bf2_sub(o2[2], c.z);
+  const unsigned hb = bf2_add(bf2_add(bf2_mul(ocx, d2[0]),
+                                      bf2_mul(ocy, d2[1])),
+                              bf2_mul(ocz, d2[2]));
+  const unsigned cc = bf2_sub(bf2_add(bf2_add(bf2_mul(ocx, ocx),
+                                              bf2_mul(ocy, ocy)),
+                                      bf2_mul(ocz, ocz)),
+                              c.w);
+  sphere_root_lowp(sph, ns, 2 * k, bf2_lo(hb), bf2_lo(cc), bf2_lo(c.w), h);
+  sphere_root_lowp(sph, ns, 2 * k + 1, bf2_hi(hb), bf2_hi(cc), bf2_hi(c.w),
+                   h);
+}
+
 // closest sphere hit (common.rs:60-98): the flat table, or culled warp by
-// warp through cluster AABBs; with LOWP (K1-lowp) the flat table through
-// sphere_step_lowp, clusters ignored as _sphere_loop_lowp ignores them;
-// then _sphere_normals: normalize(p - c), flipped for r < 0.  Loop bounds
-// are warp-uniform.
+// warp through cluster AABBs; with LOWP (K1-lowp) the packed bfloat16
+// table `spl` a pair at a time (sphere_pair_lowp), clusters ignored as
+// _sphere_loop_lowp ignores them; then _sphere_normals: normalize(p - c),
+// flipped for r < 0.  Loop bounds are warp-uniform.
 template <bool LOWP = false>
 __device__ __forceinline__ void sphere_hits(const float *__restrict__ sph,
                                             int n_sph,
                                             const float *__restrict__ sphc_b,
                                             const int *__restrict__ sphc_r,
                                             int n_sphc, const Ray &r,
-                                            bool alive, Hit &h) {
-  if (LOWP) {
-    const Ray rl = {bf16r(r.ox), bf16r(r.oy), bf16r(r.oz),
-                    bf16r(r.dx), bf16r(r.dy), bf16r(r.dz)};
-    for (int si = 0; si < n_sph; ++si) sphere_step_lowp(sph, n_sph, si, rl, h);
+                                            bool alive, Hit &h,
+                                            const uint4 *__restrict__ spl =
+                                                nullptr) {
+  if constexpr (LOWP) {
+    const unsigned o2[3] = {bf2_splat(r.ox), bf2_splat(r.oy),
+                            bf2_splat(r.oz)};
+    const unsigned d2[3] = {bf2_splat(r.dx), bf2_splat(r.dy),
+                            bf2_splat(r.dz)};
+    const int pairs = (n_sph + 1) >> 1;
+    for (int k = 0; k < pairs; ++k)
+      sphere_pair_lowp(spl, sph, n_sph, k, o2, d2, h);
   } else if (n_sphc > 0) {
     const float ivx = inv_dir(r.dx), ivy = inv_dir(r.dy), ivz = inv_dir(r.dz);
     for (int ci = 0; ci < n_sphc; ++ci) {

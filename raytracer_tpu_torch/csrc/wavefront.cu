@@ -6,10 +6,9 @@
 // K2 the one at :1015 (stream_tops > 0: the two-level _streamed_tri_walk at
 // :708 over a leaf-aligned triangle table), K1-lowp the same call with
 // lowp=True (_sphere_loop_lowp at :374: the sphere quadratic in bfloat16,
-// the LOWP template flag, sphere_step_lowp in path_common.cuh; it scans
-// the sphere table flat).  K1 and K1-lowp are wavefront_kernel; K2 is a
-// kernel of its own, two_level_kernel, so K1's instances compile without
-// its walk.  With the helpers _block_pixel_setup, _pcg3d/_u01,
+// the LOWP template flag; it scans the sphere table flat).  K1 and K1-lowp
+// are wavefront_kernel; K2 is a kernel of its own, two_level_kernel, so
+// K1's instances compile without its walk.  With the helpers _block_pixel_setup, _pcg3d/_u01,
 // _sphere_loop + _aabb_test, _sphere_normals, _make_tri_body,
 // _resolve_tri_normals and _scatter_bookkeep they compute the same thing:
 // per pixel, spp camera samples with pcg3d jitter (site 0), a bounce loop
@@ -50,6 +49,16 @@
 //  * the bounce loop ends when no lane of the warp is alive; dead lanes
 //    change nothing, so this is the per-lane result of the full loop.
 //
+// What bounds K1-lowp (the default world at 512 x 512, 64 spp, depth 8):
+// its sphere stage, as K1's.  Emulating each bfloat16 operation as a
+// float32 one rounded through a bfloat16 conversion and back costs 18
+// conversions a sphere on top of K1's float32 work; K1-lowp's stage takes
+// a packed bfloat16 table of sphere pairs (one 16-byte load a pair) and
+// Hopper's native bf16x2 add, sub and mul instead: 14 packed instructions
+// for the two spheres' centre differences, half_b and c, then each
+// sphere's roots in float32 (sphere_pair_lowp in path_common.cuh), the
+// same values bit for bit.
+//
 // What bounds K2 (the 164k-triangle gradient pass: 256x256, 4 spp, depth
 // 4): not arithmetic (the rays' own walk is ~0.02 ms at the float32 peak)
 // but occupancy and the walk's waste: one thread per pixel made ~15 warps
@@ -76,6 +85,7 @@ using namespace rt_path;
 // what K1 and K2 share: spheres, camera, outputs, the frame and the layout
 struct Frame {
   const float *sph;
+  const uint4 *sph_lp;  // K1-lowp's packed bfloat16 sphere pairs
   const float *cam;
   const float *sphc_b;
   const int *sphc_r;
@@ -127,7 +137,7 @@ __device__ __forceinline__ void trace_tile(const Frame &p, int w, int lane,
       seg += alive ? 1 : 0;
       Hit h = no_hit();
       sphere_hits<LOWP>(p.sph, p.n_sph, p.sphc_b, p.sphc_r, p.n_sphc, r,
-                        alive, h);
+                        alive, h, p.sph_lp);
       walk(r, alive, h);
       resolve_tri_normals(h);
       alive = shade(q.pix_u, s, b, r, h, alive, c);
@@ -194,14 +204,15 @@ cudaError_t launch_k1(const Params &p, int walk, int blocks,
 }
 
 // the frame fields of both entry points
-Frame make_frame(const float *sph, int n_sph, const float *sphc_b,
-                 const int *sphc_r, int n_sphc, const float *cam,
-                 float *mean, int *segs, int *next_tile, int width,
-                 int height, unsigned seed_word, int row_offset,
+Frame make_frame(const float *sph, const void *sph_lp, int n_sph,
+                 const float *sphc_b, const int *sphc_r, int n_sphc,
+                 const float *cam, float *mean, int *segs, int *next_tile,
+                 int width, int height, unsigned seed_word, int row_offset,
                  int row_stride, int shard_rows, int spp, int depth,
                  float inv_spp, const TileLayout &lay) {
   Frame f;
   f.sph = sph;
+  f.sph_lp = static_cast<const uint4 *>(sph_lp);
   f.cam = cam;
   f.sphc_b = sphc_b;
   f.sphc_r = sphc_r;
@@ -226,8 +237,10 @@ Frame make_frame(const float *sph, int n_sph, const float *sphc_b,
 }  // namespace
 
 // Launch K1 on `stream`; lowp != 0 takes the bfloat16 sphere stage
-// (K1-lowp).  Tables are row-major (ROWS, N) float32 device arrays;
-// cluster tables may be null with a count of 0.  walk (TriWalk): 0 none
+// (K1-lowp) over sph_lp, the packed table of the ceil(n_sph / 2) sphere
+// pairs (16 bytes each, 16-byte aligned; null without lowp).  Tables are
+// row-major (ROWS, N) float32 device arrays; cluster tables may be null
+// with a count of 0.  walk (TriWalk): 0 none
 // (tri is one padding column), 1 the flat scan, 2 the one-level walk over
 // the triangle clusters (the correct sign; chunks: the most 32-column
 // chunks a cluster holds, 1 .. 64).  The thread layout (run .. n_tiles,
@@ -235,9 +248,10 @@ Frame make_frame(const float *sph, int n_sph, const float *sphc_b,
 // mean [shard_rows, width, 3] float32 and segs [shard_rows, width] int32.
 // Returns cudaGetLastError() after the launch.
 extern "C" int rt_wavefront_render(
-    const float *sph, int n_sph, const float *tri, int n_tri, const float *cam,
-    const float *sphc_b, const int *sphc_r, int n_sphc, const float *tric_b,
-    const int *tric_r, int n_tric, int chunks, float *mean, int *segs,
+    const float *sph, int n_sph, const void *sph_lp, const float *tri,
+    int n_tri, const float *cam, const float *sphc_b, const int *sphc_r,
+    int n_sphc, const float *tric_b, const int *tric_r, int n_tric,
+    int chunks, float *mean, int *segs,
     int *next_tile, int width, int height, unsigned int seed_word,
     int row_offset, int row_stride, int shard_rows, int spp, int depth,
     float inv_spp, int parity_plane_sign, int lowp, int walk, int run,
@@ -249,12 +263,15 @@ extern "C" int rt_wavefront_render(
       spp < 1 || next_tile == nullptr || walk < WALK_NONE ||
       walk > WALK_LEAVES || !layout_ok(lay, width, blocks) ||
       (leaves && (parity_plane_sign || n_tric < 1 || chunks < 1 ||
-                  chunks > 64)))
+                  chunks > 64)) ||
+      (lowp &&
+       (sph_lp == nullptr || (reinterpret_cast<size_t>(sph_lp) & 15))))
     return (int)cudaErrorInvalidValue;
   Params p;
-  p.f = make_frame(sph, n_sph, sphc_b, sphc_r, n_sphc, cam, mean, segs,
-                   next_tile, width, height, seed_word, row_offset,
-                   row_stride, shard_rows, spp, depth, inv_spp, lay);
+  p.f = make_frame(sph, lowp ? sph_lp : nullptr, n_sph, sphc_b, sphc_r,
+                   n_sphc, cam, mean, segs, next_tile, width, height,
+                   seed_word, row_offset, row_stride, shard_rows, spp, depth,
+                   inv_spp, lay);
   p.tris = {tri, tric_b, tric_r, n_tri, n_tric, chunks};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
@@ -292,8 +309,8 @@ extern "C" int rt_wavefront_render_stream(
       !layout_ok(lay, width, blocks))
     return (int)cudaErrorInvalidValue;
   StreamParams p;
-  p.f = make_frame(sph, n_sph, sphc_b, sphc_r, n_sphc, cam, mean, segs,
-                   next_tile, width, height, seed_word, row_offset,
+  p.f = make_frame(sph, nullptr, n_sph, sphc_b, sphc_r, n_sphc, cam, mean,
+                   segs, next_tile, width, height, seed_word, row_offset,
                    row_stride, shard_rows, spp, depth, inv_spp, lay);
   p.walk = {tri, leafb, leafr, subb, topb, topr, n_leaves, n_tops};
   return (int)launch_persistent(two_level_kernel, p, blocks,

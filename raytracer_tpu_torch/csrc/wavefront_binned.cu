@@ -27,16 +27,27 @@
 //     9-bit origin cell], live rays with no candidate get KEY_NOMESH and dead
 //     rays KEY_DEAD, so they sort last and the caps stay exact.
 //
-// What bounds it on the card: FP32 issue and divergence in the walk, as K1;
-// the state costs 2 x 60 bytes per ray and pass (read and written once).
-// A warp of 32 consecutive regrouped slots is the culling unit that the
-// TPU's (block_rows x 128)-lane block was: the regroup by next-top key fills
-// each warp with rays bound for the same top, which is what its __any_sync
-// votes need.  Triangles are read straight from device memory (the column
-// is warp-uniform: one broadcast load); the TPU kernel's group DMA ring has
-// no counterpart.  PRIMARY is a template parameter (it changes what is
-// read); is_last, node_exit and the supertop scan are uniform over a launch,
-// so they are plain flags and cost a predicate, not another instantiation.
+// What bounds it on the card: not arithmetic (the rays' own node and
+// triangle tests are a few microseconds at the float32 peak) but the walk's
+// dependent loads and divergence; the state costs 2 x 60 bytes per live ray
+// and pass (read and written once).  A warp of 32 consecutive regrouped
+// slots is the culling unit that the TPU's (block_rows x 128)-lane block
+// was: the regroup by next-top key fills each warp with rays bound for the
+// same top, which is what its __any_sync votes need.  The design for this
+// card (the TPU kernel's group DMA ring has no counterpart):
+//   * K6's walk (top_staged_walk in path_common.cuh): a passing top's
+//     groups and sub-leaves voted once into a 32-bit mask, each masked
+//     sub-leaf's 16 test rows copied with cp.async into one of the warp's
+//     two shared tiles while the one before it is tested, each re-voted
+//     before its test; bound tests are monotone in t_best, so the warp tests
+//     the sub-leaves, in the order, of the sequential walk and ties go as
+//     before;
+//   * a warp with no live lane (the capped tail's dead slots, the padding
+//     outside the image) skips the closest hit and writes what the full
+//     pass writes.
+// PRIMARY is a template parameter (it changes what is read); is_last,
+// node_exit and the supertop scan are uniform over a launch, so they are
+// plain flags and cost a predicate, not another instantiation.
 //
 // Numerics: -fmad=false and the Pallas body's operation order, so the plain
 // version binned_pass_ref gives the same floats; the warp reductions are
@@ -111,17 +122,29 @@ __device__ __forceinline__ bool box_entry(const float *__restrict__ a, int nc,
   return (tnear <= tfar) && (tfar > T_MIN);
 }
 
-// the culled front-to-back walk over the sorted tables
+// the culled front-to-back walk over the sorted tables: runs of tops, each
+// passing top's groups and sub-leaves through top_staged_walk (K6's walk
+// with AABB votes), its sub-leaves staged through the warp's tiles
 template <bool PRIMARY>
 __device__ __forceinline__ void binned_walk(const Params &p, const Ray &r,
                                             bool alive, float t_cap,
                                             bool use_node, int ref_i,
-                                            float dmax, Hit &h) {
+                                            float dmax, Hit &h, float *tiles,
+                                            int lane) {
   const int C = p.n_tops;
   const int R8 = (C + RUN - 1) / RUN;
   const int G = p.n_subs / GROUP_SUBS;
   const int n_cols = p.n_subs * SUB;
   const float ivx = inv_dir(r.dx), ivy = inv_dir(r.dy), ivz = inv_dir(r.dz);
+  auto group_ok = [&](int g) {
+    return __any_sync(FULL_MASK, alive && aabb_test(p.grpa, G, g, r, ivx, ivy,
+                                                    ivz, fminf(h.t, t_cap)));
+  };
+  auto sub_ok = [&](int li) {
+    return __any_sync(FULL_MASK,
+                      alive && aabb_test(p.suba, p.n_subs, li, r, ivx, ivy,
+                                         ivz, fminf(h.t, t_cap)));
+  };
   for (int ri = 0; ri < R8; ++ri) {
     const int ki = min(ri * RUN, C - 1);
     const float exit_key = PRIMARY    ? p.keys[ki]
@@ -142,29 +165,15 @@ __device__ __forceinline__ void binned_walk(const Params &p, const Ray &r,
                       alive && aabb_test(p.topa, C, ci, r, ivx, ivy, ivz,
                                          fminf(h.t, t_cap))))
         continue;
-      const int g1 = p.topr[C + ci];
-      for (int g = p.topr[ci]; g < g1; ++g) {
-        if (!__any_sync(FULL_MASK,
-                        alive && aabb_test(p.grpa, G, g, r, ivx, ivy, ivz,
-                                           fminf(h.t, t_cap))))
-          continue;
-        for (int k = 0; k < GROUP_SUBS; ++k) {
-          const int li = g * GROUP_SUBS + k;
-          if (!__any_sync(FULL_MASK,
-                          alive && aabb_test(p.suba, p.n_subs, li, r, ivx,
-                                             ivy, ivz, fminf(h.t, t_cap))))
-            continue;
-          const int base = li * SUB, n = p.subn[li];
-          for (int ti = 0; ti < n; ++ti)
-            tri_step<false, false>(p.tri, n_cols, base + ti, r, h, 0.0f);
-        }
-      }
+      top_staged_walk(p.topr[ci], p.topr[C + ci], p.tri, n_cols, p.subn, r,
+                      h, tiles, lane, group_ok, sub_ok);
     }
   }
 }
 
 template <bool PRIMARY>
 __global__ void __launch_bounds__(THREADS) binned_pass_kernel(const Params p) {
+  __shared__ __align__(16) float tiles[THREADS / WARP][2 * STAGE_FLOATS];
   const int i = blockIdx.x * THREADS + threadIdx.x;
   if ((i & ~(WARP - 1)) >= p.n) return;  // n is whole warps: warp-uniform
   const int n = p.n;
@@ -217,18 +226,27 @@ __global__ void __launch_bounds__(THREADS) binned_pass_kernel(const Params p) {
   const bool alive = alive_f > 0.5f;
 
   // ---- closest hit: spheres, then the triangle walk ----
+  // A warp with no live lane (the dead slots a regroup sorts last, the
+  // padding outside the image) skips it: a dead lane's shade changes
+  // neither its ray nor its colour whatever its hit, and its key and exit
+  // bound below depend on its ray alone, so it writes what the full pass
+  // writes.
   Hit h = no_hit();
-  sphere_hits(p.sph, p.n_sph, p.sphc_b, p.sphc_r, p.n_sphc, r, alive, h);
+  if (__any_sync(FULL_MASK, alive)) {
+    sphere_hits(p.sph, p.n_sph, p.sphc_b, p.sphc_r, p.n_sphc, r, alive, h);
 
-  float t_cap = root_exit_cap(p.root, r, alive);
-  if (!PRIMARY) t_cap = fminf(t_cap, p.state_in[ST_EXITB * n + i]);
+    float t_cap = root_exit_cap(p.root, r, alive);
+    if (!PRIMARY) t_cap = fminf(t_cap, p.state_in[ST_EXITB * n + i]);
 
-  // secondary exit: the reference point nearest the warp's live centroid
-  const bool use_node = !PRIMARY && p.node_exit;
-  int ref_i = 0;
-  float dmax = 0.0f;
-  if (use_node) nearest_ref(p.refp, p.n_refs, r, alive, alive_f, ref_i, dmax);
-  binned_walk<PRIMARY>(p, r, alive, t_cap, use_node, ref_i, dmax, h);
+    // secondary exit: the reference point nearest the warp's live centroid
+    const bool use_node = !PRIMARY && p.node_exit;
+    int ref_i = 0;
+    float dmax = 0.0f;
+    if (use_node)
+      nearest_ref(p.refp, p.n_refs, r, alive, alive_f, ref_i, dmax);
+    binned_walk<PRIMARY>(p, r, alive, t_cap, use_node, ref_i, dmax, h,
+                         tiles[threadIdx.x / WARP], threadIdx.x & (WARP - 1));
+  }
   resolve_tri_normals(h);
   const bool cont = shade(pix_u, s_u, p.bounce, r, h, alive, c);
 
@@ -314,7 +332,8 @@ __global__ void __launch_bounds__(THREADS) binned_pass_kernel(const Params p) {
 // Launch one K3 pass over n slots (whole warps) on `stream`.  Tables are
 // the row-major device arrays of ops/cuda/wavefront_binned.py's
 // PassTables: sph (11, n_sph), sphere clusters (may be null, n_sphc 0), tri
-// (24, n_subs * 32), subn (n_subs), topr (2, n_tops), order / keys
+// (24, n_subs * 32), subn (n_subs), topr (2, n_tops; at most 8 groups a
+// top: the wrapper checks the ranges), order / keys
 // (n_tops), crunb (4, R8), refp (4, n_refs), norder / nkeys
 // (n_refs, n_tops), nrunb (4, n_refs * R8), root (4), klo / khi (3), the
 // sub / group / top / supertop / padded-top AABBs (6, .), cam (12).
@@ -334,7 +353,8 @@ extern "C" int rt_binned_pass(
     int samp_off, int spp, int tw, int th, int ntx, int primary, int is_last,
     int node_exit, int use_super, void *stream) {
   if (n < WARP || n % WARP || width < 1 || height < 1 || n_sph < 1 ||
-      n_subs < 1 || n_tops < 1 || n_refs < 1 || ntx < 1 ||
+      n_subs < 1 || n_subs % GROUP_SUBS || n_tops < 1 || n_refs < 1 ||
+      (use_super && n_super * SUPER < n_tops) || ntx < 1 ||
       spp < 1 || (spp & (spp - 1)) || tw < 1 || (tw & (tw - 1)) ||
       (!primary && state_in == nullptr))
     return (int)cudaErrorInvalidValue;

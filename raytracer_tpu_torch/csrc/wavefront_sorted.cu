@@ -43,13 +43,15 @@
 // The design for this card:
 //   * a launch covers only the live prefix (dead rays sort last and stay
 //     dead), so the later bounces touch a fraction of the slots;
-//   * warp-staged sub-leaves (path_common.cuh): a top's passing groups and
-//     sub-leaves are voted once at its start; each passing sub-leaf's test
-//     rows are copied with cp.async into one of the warp's two shared tiles
-//     while the previous one is tested, and tested from there as four
-//     broadcast 16-byte loads a triangle.  Each sub-leaf votes again just
-//     before its test, so the warp tests exactly the sub-leaves, in exactly
-//     the order, of the unstaged walk, and ties resolve as before;
+//   * warp-staged sub-leaves (top_staged_walk in path_common.cuh, shared
+//     with K3, whose votes test AABBs where K6's test bounding spheres): a
+//     top's passing groups and sub-leaves are voted once at its start; each
+//     passing sub-leaf's test rows are copied with cp.async into one of the
+//     warp's two shared tiles while the previous one is tested, and tested
+//     from there as four broadcast 16-byte loads a triangle.  Each sub-leaf
+//     votes again just before its test, so the warp tests exactly the
+//     sub-leaves, in exactly the order, of the unstaged walk, and ties
+//     resolve as before;
 //   * PRIMARY is a template parameter (it changes what is read); node_exit
 //     and the key output are uniform over a launch, so they are flags.
 //
@@ -157,29 +159,10 @@ __device__ __forceinline__ void sorted_walk(const Params &p, const Ray &r,
                       alive && bound_test(p.topb, C, ci, r,
                                           fminf(h.t, t_cap))))
         continue;
-      // the top's passing sub-leaves: a top spans at most 8 groups, 32 bits
-      // (the host side checks the ranges)
-      const int g0 = p.topr[ci], g1 = p.topr[C + ci];
-      const int s0 = g0 * GROUP_SUBS;
-      unsigned mask = 0u;
-      for (int g = g0; g < g1; ++g) {
-        if (!group_ok(g)) continue;
-        for (int k = 0; k < GROUP_SUBS; ++k)
-          if (sub_ok(g * GROUP_SUBS + k))
-            mask |= 1u << ((g - g0) * GROUP_SUBS + k);
-      }
-      staged_sub_walk(
-          mask, GROUP_SUBS, tiles, [&](int q) { return group_ok(g0 + q); },
-          [&](int s) { return sub_ok(s0 + s); },
-          [&](int s, float *tile) {
-            stage_sub_leaf(tile, p.tri, n_cols, (s0 + s) * SUB, lane);
-          },
-          [&](int s, const float *tile) {
-            const int li = s0 + s, n = p.subn[li];
-            for (int j = 0; j < n; ++j)
-              tri_step_staged<false, false>(tile, j, p.tri, n_cols,
-                                            li * SUB + j, r, h, 0.0f);
-          });
+      // the top's passing sub-leaves, staged (the host side checks that a
+      // top spans at most 8 groups: 32 bits)
+      top_staged_walk(p.topr[ci], p.topr[C + ci], p.tri, n_cols, p.subn, r,
+                      h, tiles, lane, group_ok, sub_ok);
     }
   }
 }

@@ -106,7 +106,8 @@ def load(csrc=CSRC_DIR) -> ctypes.CDLL:
     p, i, u, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
                   ctypes.c_float)
     fn = lib.rt_wavefront_render
-    fn.argtypes = [p, i, p, i, p,        # sph, n_sph, tri, n_tri, cam
+    fn.argtypes = [p, i, p, p, i, p,     # sph, n_sph, packed sphere pairs,
+                                         # tri, n_tri, cam
                    p, p, i, p, p, i, i,  # sphere / triangle clusters, chunks
                    p, p, p,              # mean, segs, counter
                    i, i, u, i, i, i,     # width .. shard_rows

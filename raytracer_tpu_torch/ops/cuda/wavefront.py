@@ -18,8 +18,10 @@ column, the flat scan, or the one-level walk over ``tri_clusters``, which
 copies a passing leaf's 32-column chunks into shared memory.  K1-lowp is K1
 with ``lowp``: the sphere quadratic in bfloat16 (``_sphere_loop_lowp``, the
 reduced-precision study of the JAX package), a flat scan of the sphere
-table that ignores its clusters.  K2 is the kernel of ``tri_stream``: the
-two-level walk of ``_streamed_tri_walk`` over a leaf-aligned triangle table
+table that ignores its clusters, two spheres at a time in Hopper's packed
+bfloat16 instructions over ``lowp_sphere_table`` (built once per table).
+K2 is the kernel of ``tri_stream``: the two-level walk of
+``_streamed_tri_walk`` over a leaf-aligned triangle table
 (``ops.diff.tri_stream_table``), the differentiable forward of meshes past
 the table budget, in K1's layout; it culls each leaf's 32-column sub-leaves
 by their own boxes (``sub_bounds``) and stages a passing sub-leaf in shared
@@ -69,8 +71,8 @@ from ... import rng
 
 __all__ = ["LAUNCHES", "STREAM_LAUNCHES", "LOWP_LAUNCHES", "STREAM_LEAF_PAD",
            "LEAF_SUBS", "TOP_LEAVES_MAX", "WALK_NONE", "WALK_FLAT",
-           "WALK_LEAVES", "CHUNK", "tri_walk", "render_linear_cuda",
-           "render_linear_ref"]
+           "WALK_LEAVES", "CHUNK", "tri_walk", "lowp_sphere_table",
+           "render_linear_cuda", "render_linear_ref"]
 
 LAUNCHES = 0
 STREAM_LAUNCHES = 0
@@ -245,9 +247,11 @@ def render_linear_cuda(sph, tri, cam_vec, *, width, height,
                                                                     None)
     tric_b, tric_r = tri_clusters if tri_clusters is not None else (None,
                                                                     None)
+    sph_lp = lowp_sphere_table(sph) if lowp else None
     with torch.cuda.device(device):
         rc = lib.rt_wavefront_render(
-            ptr(sph), sph.shape[1], ptr(tri), tri.shape[1], ptr(cam_vec),
+            ptr(sph), sph.shape[1], ptr(sph_lp), ptr(tri), tri.shape[1],
+            ptr(cam_vec),
             ptr(sphc_b), ptr(sphc_r), 0 if sphc_b is None else sphc_b.shape[1],
             ptr(tric_b), ptr(tric_r), 0 if tric_b is None else tric_b.shape[1],
             chunks, ptr(mean), ptr(segs), ptr(next_tile), width, height,
@@ -283,6 +287,38 @@ def _one_padding_column(tri) -> bool:
         result = not bool(tri[:3].any())
         _PADDING_CHECKED = (weakref.ref(tri), tri._version, result)
     return result
+
+
+# K1-lowp's packed table, last built: (its float32 table, version, packed)
+_LOWP_TABLE = (None, -1, None)
+
+
+def lowp_sphere_table(sph):
+    """K1-lowp's packed sphere table (``sphere_pair_lowp`` in
+    path_common.cuh) on ``sph``'s device: (ceil(S / 2), 4, 2) bfloat16,
+    row k holding cx, cy, cz and r^2 of spheres 2k and 2k + 1 (a 16-byte
+    ``uint4`` of four bfloat16x2 words, sphere 2k in each low half), each
+    the float32 value rounded once to bfloat16 (ties to even).  r^2 is -1
+    where the float32 r^2 is not > 0 and for the sphere that pads an odd
+    count, so neither can win.  Cached on the table's identity and version
+    (as ``_one_padding_column`` caches its check), so a render enqueues no
+    work for it after the first and never syncs."""
+    global _LOWP_TABLE
+    ref, version, packed = _LOWP_TABLE
+    if ref is not None and ref() is sph and version == sph._version:
+        return packed
+    n = sph.shape[1]
+    r2 = torch.where(sph[tables.SPH_R2] > 0.0, sph[tables.SPH_R2], -1.0)
+    rows = torch.stack([sph[tables.SPH_CX], sph[tables.SPH_CY],
+                        sph[tables.SPH_CZ], r2])
+    if n % 2:
+        pad = torch.tensor([0.0, 0.0, 0.0, -1.0], dtype=_F32,
+                           device=sph.device)
+        rows = torch.cat([rows, pad[:, None]], dim=1)
+    packed = rows.to(torch.bfloat16).reshape(4, -1, 2).permute(1, 0, 2) \
+        .contiguous()
+    _LOWP_TABLE = (weakref.ref(sph), sph._version, packed)
+    return packed
 
 
 def tri_walk(tri, tri_clusters) -> tuple[int, int]:

@@ -20,7 +20,10 @@ depend on the order.
 ``raytracer_tpu_torch/csrc/wavefront_binned.cu``, which replaces one pass of
 the TPU kernel ``raytracer_tpu/ops/pallas/wavefront_binned.py``
 ``_pass_call`` / ``_make_pass_kernel``.  A warp of 32 consecutive slots is
-its culling unit, as the TPU's (block_rows x 128)-lane block was.
+its culling unit, as the TPU's (block_rows x 128)-lane block was.  A warp
+stages a passing top's sub-leaves through shared memory (K6's walk,
+``top_staged_walk`` in path_common.cuh) and skips the closest hit when
+none of its 32 slots is live; neither changes an output bit.
 ``binned_pass_ref`` is the same pass in plain PyTorch, vectorised over
 rays: it takes each ray's closest hit a whole top node at a time, with ties
 resolved in the kernel's visit order (the camera's top order on the primary
@@ -225,20 +228,25 @@ def _check_tables(T: PassTables, cam_vec, state):
 def _check_index_ranges(sph, sph_clusters, subn, topr, n_groups, order,
                         norder):
     """Raise unless every index the kernel follows stays inside its table:
-    sub-leaf counts, group ranges, visit orders and sphere cluster ranges
-    (one device sync).  ``render_linear_binned`` checks its tables once a
-    frame, before anything indexes with them."""
+    sub-leaf counts, group ranges (a top spans at most ``TOP_GROUPS``
+    groups: K3 and K6 stage a top's sub-leaves through a 32-bit mask),
+    visit orders and sphere cluster ranges (one device sync).
+    ``render_linear_binned`` and ``render_linear_sorted`` check their
+    tables once a frame, before anything indexes with them."""
     C = topr.shape[1]
+    span = topr[1] - topr[0]
     bad = ((subn.min() < 0) | (subn.max() > tables.SUB)
            | (topr.min() < 0) | (topr.max() > n_groups)
+           | (span.min() < 0) | (span.max() > tables.TOP_GROUPS)
            | (order.min() < 0) | (order.max() >= C)
            | (norder.min() < 0) | (norder.max() >= C))
     if sph_clusters is not None:
         ranges = sph_clusters[1]
         bad = bad | (ranges.min() < 0) | (ranges.max() > sph.shape[1])
     if bool(bad):
-        raise ValueError("sub counts, top ranges, orders or sphere cluster "
-                         "ranges fall outside the tables")
+        raise ValueError(f"sub counts, top ranges (at most "
+                         f"{tables.TOP_GROUPS} groups a top), orders or "
+                         f"sphere cluster ranges fall outside the tables")
 
 
 def binned_pass_cuda(T: PassTables, cam_vec, state, *, n_slots, bounce,

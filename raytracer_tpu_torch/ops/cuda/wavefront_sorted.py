@@ -353,9 +353,6 @@ def _sorted_tables(sph, tri, sub_bounds, sub_counts, grp_bounds, top_bounds,
                               device=dev)
     binned._check_index_ranges(sph, sph_clusters, sub_counts, top_ranges,
                                grp_bounds.shape[1], top_order, node_orders)
-    # K6 stages a top's sub-leaves through a 32-bit mask
-    if int((top_ranges[1] - top_ranges[0]).max()) > tables.TOP_GROUPS:
-        raise ValueError(f"a top spans more than {tables.TOP_GROUPS} groups")
     return SortedTables(sph, sph_clusters, tri, sub_bounds, sub_counts,
                         grp_bounds, top_bounds, top_ranges, top_order,
                         top_keys, binned.run_bounds(top_bounds, top_order),

@@ -47,8 +47,9 @@ class Options:
     ``device`` is where the render runs: "cuda" (the kernels, the default)
     or "cpu" (their plain versions).  Nothing falls back from one to the
     other.  ``engine`` is "auto" (``ops.resolve_dispatch``) or one of
-    ``ops.ENGINES``: "cuda" (K1), "cuda_binned" (K3), "cuda_stream" (K4),
-    or "torch", "torch_binned", "torch_stream" (their plain versions).
+    ``ops.ENGINES``: "cuda" (K1), "cuda_binned" (K3), "cuda_sorted" (K6),
+    "cuda_stream" (K4), or "torch", "torch_binned", "torch_sorted",
+    "torch_stream" (their plain versions).
     ``positive_is_up`` is stored but never read, like the reference's.
     ``logger(rows_done, height)`` is the reference's progress hook
     (common.rs:292,328-330); with one set the render runs in row bands, with

@@ -1,7 +1,8 @@
 """K1, K2, K5, K5s, K4, K3, K6 and K1-lowp on the card: each CUDA kernel
 against its plain version (K1, K2, K4, K3, K1-lowp: equal segment counts,
-max|diff| <= 1e-5; K6: the same but for exact triangle ties on at most
-0.01% of the pixels; K5,
+max|diff| <= 1e-5, K1-lowp's packed stage also bitwise; K6 and K3 on the
+bench meshes: the same but for exact triangle ties on at most 0.01% of the
+pixels; K5,
 K5s: winner ids equal, dsph, dtri and dcam within 1e-5 * max|ref| + 1e-7),
 K2 and K5s bitwise K1 and K5 over the same leaves, banding, the launch
 counters, a render-then-grad round trip through K1 and K5 and one through
@@ -562,3 +563,80 @@ def test_k5_walks_match_plain_and_one_thread_a_pixel(dev, name,
     # its warp's walk
     assert torch.equal(kslab + 0.0, oslab + 0.0)
     assert torch.equal(kcam, ocam)
+
+
+# ---------------------------------------------------------------------------
+# K3's staged walk and dead-warp skip on the bench meshes, and K1-lowp's
+# packed bfloat16 stage
+# ---------------------------------------------------------------------------
+
+def _bench_mesh(name):
+    if name == "164k":
+        from raytracer_tpu_torch.models.builders import icosphere_mesh
+        from raytracer_tpu_torch.scene import (DIFFUSE, METAL,
+                                               build_materials, build_scene)
+        tris = (icosphere_mesh((-0.6, 0.0, -1.4), 0.45, 0, 6)
+                + icosphere_mesh((0.6, 0.0, -1.2), 0.45, 2, 6))
+        mats = build_materials([(DIFFUSE, (0.7, 0.3, 0.3), 0.0, 1.0),
+                                (DIFFUSE, (0.8, 0.8, 0.0), 0.0, 1.0),
+                                (METAL, (0.85, 0.85, 0.9), 0.05, 1.0)])
+        scene = build_scene([((0.0, -100.5, -1.0), 100.0, 1)], tris, mats,
+                            exact_planes=True)
+        return scene, rtt.Camera.new_at((0.0, 0.0, 0.0), 1.77778)
+    return _mesh("obj_mesh_scene" if name == "OBJ-10k" else "mesh_scene3")
+
+
+@pytest.mark.parametrize("shape", [MKW, dict(MKW, width=37, height=21,
+                                             samples_per_pixel=4)])
+@pytest.mark.parametrize("name", ["mesh-1292", "OBJ-10k", "164k"])
+def test_k3_staged_walk_on_the_bench_meshes(dev, name, shape):
+    """K3 (staged sub-leaves, dead warps skipped: the 37x21 frame pads its
+    tile with dead slots, generous caps keep dead warps in every pass)
+    against its plain version with 3e's bar, and the supertop scan,
+    node_exit and caps variants bitwise the default run."""
+    from raytracer_tpu_torch.ops.cuda import wavefront_binned as wb
+    scene, cam = _bench_mesh(name)
+    (sph, scl, *t) = ops.scene_sorted_tables(scene, dev)
+    order, keys = ops._camera_order(t[4], cam, dev)
+    args = (sph, *t, tables.camera_vec(cam).to(dev))
+    kw = dict(shape, sph_clusters=scl, top_order=order, top_keys=keys)
+    km, ks = wb.render_linear_binned(*args, **kw)
+    pm, ps = wb.render_linear_binned(*args, **kw, plain=True)
+    assert torch.isfinite(km).all() and _image_within(km, pm, ks, ps)
+    super_on = t[4].shape[1] >= wb.SUPER_MIN_TOPS
+    for variant in (dict(super_selection=not super_on),
+                    dict(node_exit=False),
+                    dict(bounce_caps=(1 << 20,) * 3)):
+        got = wb.render_linear_binned(*args, **kw, **variant)
+        assert torch.equal(got[0], km) and got[1] == ks
+
+
+@pytest.mark.parametrize("name", ["default_world", "three_spheres"])
+def test_k1_lowp_packed_stage_bitwise_plain(dev, name):
+    """K1-lowp's packed bfloat16 stage bitwise its plain version, with an
+    even sphere count and an odd one (the packed table's padding sphere)."""
+    if name == "default_world":
+        w = rtt.models.default_world()
+    else:
+        w = rtt.parse_input(
+            "camera origin 0.0 0.0 0.0 aspect 1.0;\n"
+            "material M : Metal color 0.9 0.8 0.7 fuzz 0.1;\n"
+            "material D : Diffuse color 0.4 0.6 0.3;\n"
+            "material G : Dielectric ir 1.5;\n"
+            "sphere center -0.6 0.0 -1.6 radius 0.5 material M;\n"
+            "sphere center 0.6 0.1 -1.4 radius 0.45 material D;\n"
+            "sphere center 0.0 -0.3 -1.1 radius 0.2 material G;\n")
+    scene, cam = w.to_scene(), w.to_camera()
+    sph, tri, _, _ = ops.scene_tables(scene, True, dev)
+    assert sph.shape[1] % 2 == (name == "three_spheres")
+    args = (sph, tri, tables.camera_vec(cam).to(dev))
+    kw = dict(width=64, height=36, samples_per_pixel=4, depth=8, seed=3,
+              lowp=True)
+    before = wfc.LOWP_LAUNCHES
+    km, ks = wfc.render_linear_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    assert wfc.LOWP_LAUNCHES == before + 1
+    pm, ps = wfc.render_linear_ref(*args, **kw)
+    assert torch.equal(km, pm) and ks == ps
+    f32, _ = wfc.render_linear_cuda(*args, **dict(kw, lowp=False))
+    assert not torch.equal(km, f32)

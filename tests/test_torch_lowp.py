@@ -10,7 +10,11 @@ mode (XLA:CPU may keep excess precision across a bf16 chain, so it is not
 bitwise): PSNR >= 16 and >= 26 dB, segments within 1% (measured 17.85 and
 28.01 dB, segments 0.48% and 0.39% apart).  The port's float32 frame
 fails those bars (14.35 and 25.05 dB, segments 2.0% and 5.4% apart), so
-they hold the bf16 path itself."""
+they hold the bf16 path itself.  Then the H100 kernel's packed bfloat16
+stage on the CPU: the rounding identity it rests on (one bfloat16 add, sub
+or mul is the float64 and the float32 result rounded once, subnormals,
+signed zeros and overflow included), its packed table, and a plain model
+of its pair order bitwise the plain version's stage."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -158,6 +162,166 @@ def test_bf16_step_rounds_each_operation():
     t = np.where(disc >= 0.0, t, wfc.BIG).astype(np.float32)
     np.testing.assert_array_equal(h[0].numpy(), t)
     assert (t < wfc.BIG).any()
+
+
+# ---------------------------------------------------------------------------
+# The packed bfloat16 stage of the H100 kernel (sphere_pair_lowp in
+# csrc/path_common.cuh): two spheres a packed add / sub / mul.rn.bf16x2, each
+# half rounded once.  Held on the CPU by the rounding identity it rests on
+# and by a plain model of its pair order against the plain version above.
+# ---------------------------------------------------------------------------
+
+THREE_SCENE = ("camera origin 0.0 0.0 0.0 aspect 1.0;\n"
+               "material M : Metal color 0.9 0.8 0.7 fuzz 0.1;\n"
+               "material D : Diffuse color 0.4 0.6 0.3;\n"
+               "material G : Dielectric ir 1.5;\n"
+               "sphere center -0.6 0.0 -1.6 radius 0.5 material M;\n"
+               "sphere center 0.6 0.1 -1.4 radius 0.45 material D;\n"
+               "sphere center 0.0 -0.3 -1.1 radius 0.2 material G;\n")
+
+
+def _round_bf16(x):
+    """float64 values rounded to the nearest bfloat16 (ties to even, past
+    the largest finite value to infinity), in float64 arithmetic."""
+    x = np.asarray(x, np.float64)
+    _, e = np.frexp(x)                       # |x| < 2^e
+    lead = np.maximum(e - 1, -126)           # subnormals share 2^-126's
+    ulp = np.ldexp(1.0, lead - 7)            # 8 significant bits
+    q = np.rint(x / ulp) * ulp               # rint: half to even
+    return np.where(np.abs(q) >= 2.0 ** 128, np.copysign(np.inf, x), q)
+
+
+def _bf16_operands(n=20000, seed=11):
+    """Pairs of finite bfloat16 values, as int16 bits: random patterns over
+    every exponent (subnormals included), pairs of close exponents (sums
+    that cancel or round), values near the overflow boundary, and every
+    pairing of signed zeros, the smallest and largest subnormals, the
+    smallest normal and the largest finite values."""
+    r = np.random.default_rng(seed)
+    bits = r.integers(0, 1 << 16, size=(2, n), dtype=np.uint32)
+    close = bits.copy()
+    close[1] = (close[0] & 0xFF80) ^ (r.integers(0, 1 << 7, n) |
+                                      (r.integers(0, 2, n) << 15))
+    big = 0x7F00 | r.integers(0, 0x80, size=(2, n), dtype=np.uint32)
+    big ^= (r.integers(0, 2, size=(2, n), dtype=np.uint32) << 15)
+    special = np.array([0x0000, 0x8000, 0x0001, 0x8001, 0x007F, 0x807F,
+                        0x0080, 0x8080, 0x3F80, 0xBF80, 0x7F7F, 0xFF7F,
+                        0x7F7E, 0x0100], np.uint32)
+    grid = np.stack(np.meshgrid(special, special)).reshape(2, -1)
+    pairs = np.concatenate([bits, close, big, grid], axis=1)
+    finite = ((pairs >> 7) & 0xFF) != 0xFF
+    pairs = pairs[:, finite.all(axis=0)]
+    return pairs.astype(np.uint16).view(np.int16)
+
+
+@pytest.mark.parametrize("op", ["add", "sub", "mul"])
+def test_bf16_ops_round_once(op):
+    """One bfloat16 add, sub or mul of torch on the CPU is the float64
+    result rounded once to bfloat16 and the float32 result rounded to
+    bfloat16: float64 (53 bits) and float32 (24 bits) both hold at least
+    2 x 8 + 2 significant bits, so rounding their result to bfloat16 is
+    the correctly rounded bfloat16 operation (products of two 8-bit
+    significands are exact in either; subnormals and overflow included).
+    The kernel's add / sub / mul.rn.bf16x2 round each half so; the plain
+    version is torch's op."""
+    a_bits, b_bits = (torch.from_numpy(x.copy()) for x in _bf16_operands())
+    a, b = a_bits.view(torch.bfloat16), b_bits.view(torch.bfloat16)
+    fn = {"add": torch.add, "sub": torch.sub, "mul": torch.mul}[op]
+    got = fn(a, b)
+    exact = _round_bf16(fn(a.double(), b.double()).numpy())
+    want64 = torch.from_numpy(exact.astype(np.float32)).to(torch.bfloat16)
+    want32 = fn(a.float(), b.float()).to(torch.bfloat16)
+    assert not torch.isnan(got).any()
+    for want in (want64, want32):
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    sub = (a_bits & 0x7F80) == 0
+    assert sub.sum() > 100 and (got.view(torch.int16) & 0x7F80 == 0).sum() \
+        > 100 and torch.isinf(got).sum() > 100
+
+
+def test_lowp_sphere_table_layout_and_cache():
+    w = rtt.parse_input(THREE_SCENE)
+    sph = torch.from_numpy(tables.pack_spheres(w.to_scene()))
+    t = wfc.lowp_sphere_table(sph)
+    assert t.shape == (2, 4, 2) and t.dtype == torch.bfloat16
+    assert t.is_contiguous() and t.element_size() * t[0].numel() == 16
+    # row k: cx, cy, cz, r^2 of spheres 2k (first) and 2k + 1
+    want = sph[[tables.SPH_CX, tables.SPH_CY, tables.SPH_CZ,
+                tables.SPH_R2]].to(torch.bfloat16)
+    assert torch.equal(t[0], want[:, 0:2]) and torch.equal(t[1, :, 0],
+                                                           want[:, 2])
+    # the padding sphere of the odd count: r^2 = -1, so it cannot win
+    assert t[1, :, 1].tolist() == [0.0, 0.0, 0.0, -1.0]
+    assert wfc.lowp_sphere_table(sph) is t
+    sph[tables.SPH_R2, 0] = -0.0         # no longer a sphere; in place
+    t2 = wfc.lowp_sphere_table(sph)
+    assert t2 is not t and float(t2[0, 3, 0]) == -1.0
+
+
+def _pair_model(sph, ray):
+    """K1-lowp's stage as the H100 kernel takes it: the packed table a pair
+    at a time, o - c, half_b = (ocx dx + ocy dy) + ocz dz and c = ((ocx^2 +
+    ocy^2) + ocz^2) - r^2 on both halves at once in bfloat16 ops (the ray
+    rounded once, in both halves), then each half's roots and the strict
+    closest-hit compare in float32, sphere 2k before 2k + 1, a winner's
+    centre and material from the float32 table."""
+    n = ray[0].shape[0]
+    o = [x.to(torch.bfloat16)[:, None].expand(n, 2) for x in ray[:3]]
+    d = [x.to(torch.bfloat16)[:, None].expand(n, 2) for x in ray[3:]]
+    h = wfc.new_hit(n, ray[0].device)
+    cols = sph.t().tolist()
+    for k, c in enumerate(wfc.lowp_sphere_table(sph)):
+        oc = [o[j] - c[j] for j in range(3)]
+        hb = (oc[0] * d[0] + oc[1] * d[1]) + oc[2] * d[2]
+        cc = ((oc[0] * oc[0] + oc[1] * oc[1]) + oc[2] * oc[2]) - c[3]
+        for half in (0, 1):
+            half_b, c_f = hb[:, half].float(), cc[:, half].float()
+            disc = half_b * half_b - c_f
+            ok = (disc >= 0.0) & (float(c[3, half]) >= 0.0)
+            sq = torch.sqrt(torch.clamp_min(disc, 0.0))
+            root1, root2 = -half_b - sq, -half_b + sq
+            t = torch.where(root1 > wfc.T_MIN, root1,
+                            torch.where(root2 > wfc.T_MIN, root2, wfc.BIG))
+            t = torch.where(ok, t, wfc.BIG)
+            better = t < h[0]
+            if not bool(better.any()):
+                continue
+            cx, cy, cz, _r, _r2, kind, ar, ag, ab, fz, ir = cols[2 * k + half]
+            for j, v in enumerate((t, cx, cy, cz, kind, ar, ag, ab, fz, ir)):
+                h[j] = torch.where(better, v, h[j])
+    return h
+
+
+@pytest.mark.parametrize("name", ["default_world", "unit_scene",
+                                  "three_spheres"])
+def test_packed_pair_order_is_the_plain_stage(name):
+    """The pair model, the odd count's padding sphere included, bitwise
+    the plain version's sphere-by-sphere bfloat16 stage on 8192 rays (half
+    aimed at the spheres, half anywhere; from a numpy seed)."""
+    if name == "default_world":
+        w = rtt.models.default_world()
+    else:
+        w = rtt.parse_input(UNIT_SCENE if name == "unit_scene"
+                            else THREE_SCENE)
+    scene, cam = w.to_scene(), w.to_camera()
+    sph = torch.from_numpy(tables.pack_spheres(scene))
+    r = np.random.default_rng(5)
+    n = 8192
+    o = np.asarray(cam.origin.numpy(), np.float64) + r.normal(0, 0.2, (n, 3))
+    aim = sph[:3].t().numpy()[r.integers(0, sph.shape[1], n)]
+    d = np.where(np.arange(n)[:, None] < n // 2,
+                 aim + r.normal(0, 0.3, (n, 3)) - o, r.normal(0, 1, (n, 3)))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    ray = [torch.from_numpy(np.ascontiguousarray(v, np.float32))
+           for v in (*o.T, *d.T)]
+    want = wfc.new_hit(n, torch.device("cpu"))
+    rb = [x.to(torch.bfloat16) for x in ray]
+    for col in sph.t().tolist():
+        wfc._sphere_step(col, ray, want, None, rb)
+    got = _pair_model(sph, ray)
+    for g, w_ in zip(got, want):
+        assert torch.equal(g, w_)
+    assert (want[0] < wfc.BIG).float().mean() > 0.3
 
 
 if __name__ == "__main__":

@@ -106,6 +106,13 @@ def test_resolve_dispatch():
         ops.resolve_dispatch(ref_scene, None, "pallas", "cpu")
 
 
+@pytest.mark.parametrize("engine", ops.ENGINES[1:])
+def test_options_docstring_names_every_engine(engine):
+    """``Options``' docstring lists every engine a caller may name, each
+    quoted as it is passed."""
+    assert f'"{engine}"' in rtt.Options.__doc__
+
+
 def test_cuda_engine_on_cpu_raises_instead_of_rendering():
     w = rtt.models.default_world()
     with pytest.raises(ValueError, match="CUDA device"):
