@@ -6,13 +6,16 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 It drives the port's forward render path through the hand-written CUDA
-kernel K1, its gradient pass through K1 and the backward kernel K5, its
-triangle-mesh paths through the binned per-bounce kernel K3 and the
+kernel K1 (and the CLI's file output through the native C++ writer), its
+gradient pass through K1 and the backward kernel K5, its triangle-mesh
+paths through the binned per-bounce kernel K3 and the
 streamed big-mesh kernel K4, the big-mesh gradient pass through K2 and
 K5s (K1 and K5 with the two-level leaf walk), the big-mesh frames past
-128 spp or 2^24 rays through the sorted per-bounce kernel K6, and K1's
-bfloat16 sphere stage K1-lowp, and fails (non-zero exit, no result line)
-if any phase fails:
+128 spp or 2^24 rays through the sorted per-bounce kernel K6, K1's
+bfloat16 sphere stage K1-lowp, the reference-parity path (the native C++
+engine, the oracle, the sequential parity renderer, the full-scale
+certification) and the browser viewer on the card, and fails (non-zero
+exit, no result line) if any phase fails:
 
   1. device: a CUDA GPU is required; prints its name and power limit;
   2. build: compiles csrc/*.cu with nvcc (first use) and prints the time
@@ -140,7 +143,37 @@ if any phase fails:
      the three meshes; K6 vs its plain version at (A) (67.1M rays, past
      2^24; bitwise), with both versions' bounce times and K6's bound
      there; K1-lowp vs K1 at the lowp study's frame with both times, the
-     plain version's (held bitwise) and PSNR against float32.
+     plain version's (held bitwise) and PSNR against float32;
+  6a. native: the C++ library built by the host compiler (built once,
+     before phase 4, whose CLI writes through it: its build time and the
+     compiler's version line); phase 4's framebuffer written by the native
+     writer and by the Python formatter (bytes equal, both times); and
+     ``cli.main`` as phase 4 runs it, with the native writer and with the
+     formatter (the library made unavailable), in turns, files equal;
+  6b. the sequential parity renderer on the card
+     (``ray_trace_parity(device="cuda")``, its per-sample step replayed as
+     a CUDA graph): the default world at 48x27, 2 spp, depth 8 and the FFI
+     world at 32x18, 2 spp, depth 4, each bitwise ``NativeWorld.render``
+     and the oracle, with samples/s; ``cli.main`` with ``parity=1`` at
+     width 64, 1 spp, depth 2 on the card, its PPM bitwise
+     ``ray_trace_parity`` on the CLI's scene and camera;
+  6c. ``certify.certify()`` at full size (512x512, 64 spp, depth 8):
+     native parity against the port's K1 (the resolved engine ``cuda``,
+     two K1 launches -- warm-up and timed -- and nothing else); PSNR > 30
+     dB, mean |du8| < 4 and the native sha256 equal to ``CERTIFY.json``'s;
+     its report on one line
+     beside the card's name and power limit (also written to
+     ``chiprun_out/certify_torch.json``);
+  6d. ``httpviewer.make_server`` on 127.0.0.1 in a thread over a
+     progressive default-world ``RenderSession`` on ``cuda`` as ``serve``
+     builds it (400x224, 16 spp, depth 8, max_samples 48): ``GET /``, three
+     ``/frame.png`` polls (X-Samples 16, 32, 48, each launching K1 once and
+     nothing else, counters zeroed before each request and read after),
+     ``POST /move``, a poll back at 16, ``GET /camera``, the ms of each;
+     the first PNG bitwise a fresh identical session's ``frame()``, and
+     ``viewer.framebuffer_to_ansi`` of it; then a mesh session over the
+     5120-triangle icosphere resolving to ``cuda_binned``, whose polls
+     launch K3 and no other kernel.
 
 After the phases a line sums each of the eight kernels' device time over
 this run's main-path launches (launches x the time at their shapes; K1's
@@ -380,7 +413,7 @@ def phase_kernel_vs_plain(rtt) -> float:
 def phase_main_path(rtt) -> int:
     from raytracer_tpu_torch import cli, image
     from raytracer_tpu_torch.ops.cuda import wavefront as wfc
-    args = ["samples=64", "ray_depth=8", "width=512"]
+    args = CLI_ARGS
     from raytracer_tpu_torch.ops.cuda import wavefront_bwd as wb
     with tempfile.TemporaryDirectory() as tmp:
         out = str(Path(tmp) / "image.ppm")
@@ -440,7 +473,7 @@ def phase_main_path(rtt) -> int:
         f"events): {sum(band_ms):.3f} ms, {min(band_ms):.3f} to "
         f"{max(band_ms):.3f} ms a band; bound {b:.4f} ms by "
         f"{per[0][1]} ({100 * b / sum(band_ms):.2f}%)")
-    return launches, sum(band_ms), (b, per[0][1])
+    return launches, sum(band_ms), (b, per[0][1]), fb
 
 
 def _median_seconds(fn, runs=5):
@@ -3218,6 +3251,316 @@ def compare_times_main(paths) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# the reference-parity path (native engine, oracle, parity renderer,
+# certification) and the viewers: phases 6a-6d
+# ---------------------------------------------------------------------------
+
+CLI_ARGS = ["samples=64", "ray_depth=8", "width=512"]
+# tests/test_certify.py's tile and tests/test_native.py's FFI case
+PARITY_TILES = (("default world", "default_world_source", 48, 27, 2, 8),
+                ("FFI world", "ffi_example_source", 32, 18, 2, 4))
+PARITY_CLI = ["parity=1", "width=64", "samples=1", "ray_depth=2"]
+VIEWER = dict(width=400, samples=16, ray_depth=8, max_samples=48)
+
+
+def phase_native_build() -> dict:
+    """Build (or find) and load the native C++ library with the host
+    compiler; its time and the compiler's version line are printed in 6a."""
+    from raytracer_tpu_torch import native
+    cxx = native.compiler()
+    version = subprocess.run([cxx, "--version"], capture_output=True,
+                             text=True, timeout=60,
+                             check=True).stdout.splitlines()[0]
+    built = not native.library_path().exists()
+    t0 = time.perf_counter()
+    lib = native.load_library()
+    sec = time.perf_counter() - t0
+    log(f"native: {lib._name} {'built' if built else 'found'} and loaded "
+        f"in {sec:.3f}s ({cxx}: {version})")
+    return dict(seconds=sec, built=built, path=lib._name, version=version)
+
+
+def phase_native_writer(rtt, cli_fb, info) -> dict:
+    """6a: the native PPM writer against the Python formatter on phase 4's
+    framebuffer (bytes equal), both times, and cli.main's wall time with
+    the native writer and with the formatter (the library made
+    unavailable), in turns."""
+    from raytracer_tpu_torch import cli, image, native
+    log(f"\n6a native: library {'built' if info['built'] else 'found'} in "
+        f"{info['seconds']:.3f}s by {info['version']}")
+    with tempfile.TemporaryDirectory() as tmp:
+        pn, pp = Path(tmp) / "n.ppm", Path(tmp) / "p.ppm"
+        t0 = time.perf_counter()
+        native.write_ppm_native(cli_fb, str(pn))
+        native_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pp.write_text(image.format_ppm(cli_fb))
+        python_s = time.perf_counter() - t0
+        if pn.read_bytes() != pp.read_bytes():
+            raise SystemExit("6a: the native writer's bytes differ from the "
+                             "Python formatter's")
+        log(f"  {cli_fb.shape[1]}x{cli_fb.shape[0]} framebuffer: native "
+            f"writer {native_s * 1e3:.3f} ms, Python formatter "
+            f"{python_s * 1e3:.3f} ms, bytes equal ({pn.stat().st_size})")
+
+        def unavailable(*a):
+            raise native.NativeUnavailable("made unavailable for timing")
+
+        walls = {"native": [], "formatter": []}
+        real = native.write_ppm_native
+        for writer in ("native", "formatter", "native", "formatter"):
+            native.write_ppm_native = real if writer == "native" \
+                else unavailable
+            try:
+                out = Path(tmp) / f"{writer}.ppm"
+                t0 = time.perf_counter()
+                if cli.main(CLI_ARGS + [f"out={out}"]) != 0:
+                    raise SystemExit(f"6a: cli.main failed ({writer})")
+                walls[writer].append(time.perf_counter() - t0)
+            finally:
+                native.write_ppm_native = real
+        if (Path(tmp) / "native.ppm").read_bytes() != \
+                (Path(tmp) / "formatter.ppm").read_bytes():
+            raise SystemExit("6a: cli.main wrote other bytes with the "
+                             "formatter")
+    log(f"  cli.main({CLI_ARGS}) wall time: native writer "
+        f"{[round(x, 4) for x in walls['native']]} s, Python formatter "
+        f"{[round(x, 4) for x in walls['formatter']]} s")
+    return dict(native_ms=native_s * 1e3, python_ms=python_s * 1e3,
+                walls=walls)
+
+
+def phase_parity(rtt, smi) -> dict:
+    """6b: the sequential parity renderer on the card, bitwise the native
+    engine and the oracle; the CLI's parity=1 bitwise ray_trace_parity."""
+    import math
+    from raytracer_tpu_torch import cli, image, native, oracle, render
+    log(f"\n6b parity on the card ({smi})")
+    rates = {}
+    for label, source, w, h, spp, depth in PARITY_TILES:
+        src = getattr(rtt.models, source)()
+        world = rtt.parse_input(src)
+        scene, cam = world.to_scene(), world.to_camera()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = render.ray_trace_parity(scene, cam, w, h, spp, depth,
+                                      device="cuda")
+        sec = time.perf_counter() - t0
+        nat = native.NativeWorld(src).render(w, h, samples_per_pixel=spp,
+                                             max_ray_bounces=depth)
+        ocam, oworld = world.to_oracle()
+        ref = oracle.ray_trace(oworld, ocam, w, h, spp, depth)
+        same = (np.array_equal(got, nat), np.array_equal(got, ref))
+        rate = w * h * spp / sec
+        log(f"  {label} {w}x{h}, {spp} spp, depth {depth}: {sec:.3f} s, "
+            f"{rate:.1f} samples/s ({rate * depth:.1f} bounce steps/s); "
+            f"bitwise native {same[0]}, oracle {same[1]}")
+        if not all(same):
+            raise SystemExit(f"6b: {label}: the card's parity render "
+                             f"differs (native {same[0]}, oracle {same[1]})")
+        rates[label] = rate
+    # what the graph buys: the same step run eagerly (one launch an
+    # operation) against its graph replays, on a small tile, bitwise
+    world = rtt.models.ffi_example_world()
+    kw = dict(width=8, height=5, samples_per_pixel=2, depth=4)
+    t0 = time.perf_counter()
+    graphed = render.render_parity(world.to_scene(), world.to_camera(),
+                                   device="cuda", **kw)
+    torch.cuda.synchronize()
+    graph_s = time.perf_counter() - t0
+    with torch.inference_mode():
+        step, (_, _, eager) = render._parity_step(
+            world.to_scene().to("cuda"), world.to_camera().to("cuda"),
+            kw["width"], kw["height"], kw["samples_per_pixel"], kw["depth"],
+            rtt.rng.DEFAULT_SEED, True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(eager.shape[0]):
+            step()
+        torch.cuda.synchronize()
+        eager_s = time.perf_counter() - t0
+    steps = eager.shape[0] * kw["depth"]
+    log(f"  the step eagerly against its graph (FFI world 8x5, 2 spp, depth "
+        f"4): {steps / eager_s:.1f} against {steps / graph_s:.1f} bounce "
+        f"steps/s (the graph's time includes its capture), bitwise "
+        f"{torch.equal(eager.reshape(graphed.shape), graphed)}")
+    if not torch.equal(eager.reshape(graphed.shape), graphed):
+        raise SystemExit("6b: the graph replays differ from the eager step")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "p.ppm"
+        t0 = time.perf_counter()
+        rc = cli.main(PARITY_CLI + ["device=cuda", f"out={out}"])
+        sec = time.perf_counter() - t0
+        fb = image.read_ppm(str(out))
+    cam = rtt.Camera.new_look_at((0.0, 0.0, 0.0), (0.0, 0.0, -1.0),
+                                 (0.0, 1.0, 0.0), math.pi / 2.0, 1.77778)
+    want = render.ray_trace_parity(rtt.models.default_world().to_scene(),
+                                   cam, 64, int(64 / 1.77778), 1, 2,
+                                   device="cuda")
+    log(f"  cli.main({PARITY_CLI}) rc={rc} in {sec:.3f} s: framebuffer "
+        f"{fb.shape}, bitwise ray_trace_parity {np.array_equal(fb, want)}")
+    if rc != 0 or not np.array_equal(fb, want):
+        raise SystemExit("6b: the CLI's parity=1 frame differs")
+    return rates
+
+
+def phase_certify(smi) -> dict:
+    """6c: certify at full size; one line of its report."""
+    from raytracer_tpu_torch import certify
+    log("\n6c certification")
+    _zero_counts()
+    report = certify.certify()
+    counts = _read_counts()
+    certify.DEFAULT_OUT.parent.mkdir(parents=True, exist_ok=True)
+    certify.DEFAULT_OUT.write_text(json.dumps(report, indent=1) + "\n")
+    keys = ("psnr_db", "mean_abs_diff_u8", "per_channel_max_diff_u8",
+            "frac_pixels_diff_gt_8", "native_parity_sha256",
+            "expected_native_parity_sha256", "fast_sha256",
+            "native_seconds", "native_threads", "fast_seconds",
+            "fast_segments", "fast_engine", "certified")
+    log("  certify: " + json.dumps({k: report[k] for k in keys})
+        + f"; launches {counts}; {smi}")
+    # one K1 launch to warm up and one timed, and nothing else
+    if report["fast_engine"] != "cuda" or counts != _only(K1=2):
+        raise SystemExit(f"6c: the fast image came from "
+                         f"{report['fast_engine']} with launches {counts}, "
+                         f"not from K1 (two launches)")
+    if not report["certified"]:
+        raise SystemExit("6c: not certified (PSNR > 30 dB, mean |diff| < 4 "
+                         "and the CERTIFY.json native sha256 are required)")
+    return report
+
+
+def _request(url, data=None):
+    import urllib.request
+    req = urllib.request.Request(url, data=data,
+                                 method="POST" if data else "GET")
+    _zero_counts()
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=300) as r:
+        body, headers = r.read(), dict(r.headers)
+    return body, headers, (time.perf_counter() - t0) * 1e3, _read_counts()
+
+
+def _png_rgba(data: bytes) -> np.ndarray:
+    """Decode ``image.png_bytes``' output (RGBA8, filter 0 on each row)."""
+    import zlib
+    pos, idat, size = 8, b"", None
+    while pos < len(data):
+        n = int.from_bytes(data[pos:pos + 4], "big")
+        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        if tag == b"IHDR":
+            size = (int.from_bytes(body[4:8], "big"),
+                    int.from_bytes(body[0:4], "big"))
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    h, w = size
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(
+        h, 1 + 4 * w)
+    return raw[:, 1:].reshape(h, w, 4)
+
+
+def _served(session, script):
+    """Serve ``session`` on 127.0.0.1 in a thread and send ``script``'s
+    requests ((label, path, body)); each request's response, ms and launch
+    counts."""
+    import threading
+    from raytracer_tpu_torch import httpviewer
+    httpd = httpviewer.make_server(session, port=0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        return [(label, *_request(base + path, body))
+                for label, path, body in script]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=60)
+
+
+def phase_viewer(rtt) -> dict:
+    """6d: the browser viewer on the card: a progressive default-world
+    session as ``serve`` builds it (K1 once a rendered poll), then a mesh
+    session over the 5120-triangle icosphere (K3, no K1)."""
+    from raytracer_tpu_torch import viewer
+    from raytracer_tpu_torch.api import RenderSession
+    from raytracer_tpu_torch.models.builders import icosphere_mesh
+    from raytracer_tpu_torch.scene import (DIFFUSE, METAL, build_materials,
+                                           build_scene)
+    log("\n6d viewer")
+    w = VIEWER["width"]
+    h = int(w / 1.77778)
+    opts = rtt.Options(samples_per_pixel=VIEWER["samples"],
+                       max_ray_bounces=VIEWER["ray_depth"])
+
+    def session():
+        return RenderSession(rtt.models.default_world_source(), w, h, opts,
+                             device="cuda", progressive=True,
+                             max_samples=VIEWER["max_samples"])
+    move = json.dumps({"dx": 0.1, "dy": 0.0, "dz": 0.0}).encode()
+    frame = ("/frame.png", "/frame.png", None)
+    script = [("GET /", "/", None), frame, frame, frame,
+              ("POST /move", "/move", move), frame,
+              ("GET /camera", "/camera", None)]
+    out = _served(session(), script)
+    ms = {}
+    polls = []
+    for label, body, headers, t_ms, counts in out:
+        ms.setdefault(label, []).append(t_ms)
+        log(f"  {label}: {t_ms:.3f} ms, X-Samples "
+            f"{headers.get('X-Samples', '-')}, launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        if label == "/frame.png":
+            polls.append((headers["X-Samples"], counts, body))
+    spp = [p[0] for p in polls]
+    if spp != ["16", "32", "48", "16"]:
+        raise SystemExit(f"6d: X-Samples {spp}, expected 16, 32, 48 and 16 "
+                         f"after the move")
+    for _, counts, _ in polls:
+        if counts != _only(K1=1):
+            raise SystemExit(f"6d: a rendered poll launched {counts}, "
+                             f"expected one K1 launch and nothing else")
+    first = _png_rgba(polls[0][2])
+    fresh = session().frame()
+    if not np.array_equal(first, fresh):
+        raise SystemExit("6d: the first PNG is not a fresh session's frame")
+    ansi = viewer.framebuffer_to_ansi(first)
+    log(f"  first PNG bitwise a fresh session's frame(); "
+        f"framebuffer_to_ansi: {len(ansi.splitlines())} rows, "
+        f"{len(ansi)} chars")
+    if len(ansi.splitlines()) != h // 2 or "▀" not in ansi:
+        raise SystemExit("6d: bad ANSI blit")
+
+    tris = icosphere_mesh((0.0, 0.0, -1.2), 0.5, 0, 4)       # 5120
+    mats = build_materials([(DIFFUSE, (0.7, 0.3, 0.3), 0.0, 1.0),
+                            (METAL, (0.8, 0.8, 0.8), 0.1, 1.0)])
+    scene = build_scene([((0.0, -100.5, -1.0), 100.0, 1)], tris, mats,
+                        exact_planes=True)
+    mesh = RenderSession.from_world(
+        scene, rtt.Camera.new_at((0.0, 0.0, 0.0), 1.77778), w, h, opts,
+        device="cuda", progressive=True, max_samples=VIEWER["max_samples"])
+    engine = mesh.resolved_engine()
+    out = _served(mesh, [("/frame.png", "/frame.png", None)] * 2
+                  + [("POST /move", "/move", move),
+                     ("/frame.png", "/frame.png", None)])
+    mesh_ms = []
+    for label, body, headers, t_ms, counts in out:
+        log(f"  mesh ({scene.num_triangles} triangles, {engine}) {label}: "
+            f"{t_ms:.3f} ms, X-Samples {headers.get('X-Samples', '-')}, "
+            f"launches { {k: v for k, v in counts.items() if v} }")
+        if label == "/frame.png":
+            mesh_ms.append(t_ms)
+            if counts["K3"] < 1 or counts != _only(K3=counts["K3"]):
+                raise SystemExit(f"6d: a mesh poll launched {counts}, "
+                                 f"expected K3 and no other kernel")
+    if engine != "cuda_binned":
+        raise SystemExit(f"6d: the mesh session resolved to {engine}")
+    return dict(ms=ms, mesh_ms=mesh_ms)
+
+
 def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] == "--times":
         return times_main(sys.argv[2], sys.argv[3])
@@ -3228,6 +3571,7 @@ def main() -> int:
     smi = phase_device()
     rtt = import_port()
     phase_build()
+    native_build = phase_native_build()
     scenes = mesh_scenes(rtt)
     max_err = phase_kernel_vs_plain(rtt)
     k5_err = phase_grad_vs_plain(rtt)
@@ -3235,7 +3579,7 @@ def main() -> int:
     stream = phase_stream_vs_plain(rtt, scenes)
     sorted_small = phase_sorted_vs_plain(rtt, scenes)
     lowp_err = phase_lowp_vs_plain(rtt)
-    launches, cli_k1_ms, cli_bound = phase_main_path(rtt)
+    launches, cli_k1_ms, cli_bound, cli_fb = phase_main_path(rtt)
     train = phase_train(rtt)
     mesh_main = phase_mesh_main_paths(rtt, scenes)
     mgrad = phase_mesh_grad(rtt, scenes)
@@ -3246,6 +3590,10 @@ def main() -> int:
     mperf = phase_mesh_throughput(rtt, smi, scenes, mesh_main["cli"])
     sperf = phase_mesh_grad_throughput(rtt, smi, scenes)
     soperf = phase_sorted_throughput(rtt, smi, scenes)
+    phase_native_writer(rtt, cli_fb, native_build)
+    phase_parity(rtt, smi)
+    phase_certify(smi)
+    phase_viewer(rtt)
     head = perf["default world 512x512 64spp depth 8"]
     big = sperf["164k"]
     # each kernel's device time over its launches on this run's main paths

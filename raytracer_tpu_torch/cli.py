@@ -12,8 +12,9 @@ view over a ground sphere, correct plane equation: meshes of at least
 one launch per row band of the scanline logger), ``width=N``, ``out=PATH``
 (.ppm or .png), ``seed=N``, ``use_scene_camera=1`` and
 ``device=cuda|cpu`` (default cuda: the CUDA kernels; without a GPU the CLI
-exits with an error rather than render on the CPU).  ``parity=1`` is not
-ported yet and exits with a message.
+exits with an error rather than render on the CPU), ``parity=1`` (the
+sequential parity renderer, bit-exact against the reference algorithm, at
+the reference's seed, on ``device``; no ``[stats]`` line).
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from .camera import Camera
 from .image import write_png, write_ppm
 from .models import default_world_source
 from .models import obj as obj_mod
-from .render import Options, ray_trace
+from .render import Options, ray_trace, ray_trace_parity
 from .scene import DIFFUSE, build_materials, build_scene
 
 __all__ = ["get_arguments", "main"]
@@ -37,12 +38,6 @@ __all__ = ["get_arguments", "main"]
 _INT_KEYS = ("samples", "ray_depth", "width", "seed", "parity",
              "use_scene_camera")
 _STR_KEYS = ("scene", "out", "obj", "device")
-
-_NOT_PORTED = {
-    "parity": "parity=1 is not ported yet: the sequential parity renderer "
-              "(render.render_parity) is the 'parity renderer' item of "
-              "ROADMAP.md's modules still to port",
-}
 
 
 def get_arguments(argv):
@@ -89,9 +84,6 @@ def _obj_scene(path: str):
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     samples, depth, extras = get_arguments(argv)
-    for key, message in _NOT_PORTED.items():
-        if extras.get(key):
-            raise SystemExit(message)
     device = extras.get("device", "cuda")
     if device not in ("cuda", "cpu"):
         raise SystemExit(f"device must be cuda or cpu, got {device!r}")
@@ -124,13 +116,19 @@ def main(argv=None) -> int:
     image_width = int(extras.get("width", 400))      # main.rs:91
     image_height = int(image_width / aspect)         # main.rs:92
 
-    from .utils.profiling import ScanlineLogger
-    # main.rs:51 wires the scanline logger to stderr in the CLI
-    opts = Options(samples_per_pixel=samples, max_ray_bounces=depth,
-                   seed=int(extras.get("seed", Options().seed)),
-                   logger=ScanlineLogger(), device=device)
     t0 = time.perf_counter()
-    fb, segments = ray_trace(scene, camera, image_width, image_height, opts)
+    if extras.get("parity"):
+        fb = ray_trace_parity(scene, camera, image_width, image_height,
+                              samples, depth, device=device)
+        segments = None
+    else:
+        from .utils.profiling import ScanlineLogger
+        # main.rs:51 wires the scanline logger to stderr in the CLI
+        opts = Options(samples_per_pixel=samples, max_ray_bounces=depth,
+                       seed=int(extras.get("seed", Options().seed)),
+                       logger=ScanlineLogger(), device=device)
+        fb, segments = ray_trace(scene, camera, image_width, image_height,
+                                 opts)
     dt = time.perf_counter() - t0
 
     out = extras.get("out", "image.ppm")
@@ -140,9 +138,10 @@ def main(argv=None) -> int:
     else:
         write_ppm(fb, out)
     print("          Done!", file=sys.stderr)
-    print(f"[stats] {segments} ray segments in {dt:.3f}s on {device} "
-          f"({segments / dt / 1e6:.1f} Mrays/s incl. first-use build)",
-          file=sys.stderr)
+    if segments is not None:
+        print(f"[stats] {segments} ray segments in {dt:.3f}s on {device} "
+              f"({segments / dt / 1e6:.1f} Mrays/s incl. first-use build)",
+              file=sys.stderr)
     return 0
 
 

@@ -2,7 +2,8 @@
 
 Port of ``raytracer_tpu/image.py``: the framebuffer is a numpy
 ``[H, W, 4] uint8`` array; ``write_ppm`` writes the reference's ASCII P3
-output (image.rs:59-81: header, alpha dropped, one "r g b" triplet per line).
+output (image.rs:59-81: header, alpha dropped, one "r g b" triplet per line),
+to a file through the native C writer (``native.write_ppm_native``).
 """
 
 from __future__ import annotations
@@ -14,8 +15,8 @@ from typing import Optional
 
 import numpy as np
 
-__all__ = ["new_framebuffer", "write_ppm", "read_ppm", "png_bytes",
-           "write_png"]
+__all__ = ["new_framebuffer", "format_ppm", "write_ppm", "read_ppm",
+           "png_bytes", "write_png"]
 
 
 def new_framebuffer(width: int, height: int) -> np.ndarray:
@@ -23,23 +24,48 @@ def new_framebuffer(width: int, height: int) -> np.ndarray:
     return np.zeros((height, width, 4), np.uint8)
 
 
-def write_ppm(framebuffer: np.ndarray, path: Optional[str] = None) -> None:
-    """ASCII P3, alpha dropped, one triplet per line; ``path=None`` writes
-    to stdout like the reference's ``None`` arm."""
+def _checked(framebuffer) -> np.ndarray:
     fb = np.asarray(framebuffer)
     if fb.ndim != 3 or fb.shape[2] not in (3, 4) or fb.dtype != np.uint8:
         raise ValueError(f"framebuffer must be [H, W, 3|4] uint8, got "
                          f"{fb.shape} {fb.dtype}")
+    return fb
+
+
+def format_ppm(framebuffer: np.ndarray) -> str:
+    """The P3 text of an RGBA8 (or RGB) framebuffer (image.rs:59-81),
+    formatted with C-level numpy string ops, not a per-pixel loop."""
+    fb = _checked(framebuffer)
     height, width = fb.shape[:2]
     dec = np.char.mod("%d", fb[:, :, :3].reshape(-1, 3))
     rows = np.char.add(np.char.add(
         np.char.add(dec[:, 0], " "), np.char.add(dec[:, 1], " ")), dec[:, 2])
-    data = f"P3\n{width} {height}\n255\n" + "\n".join(rows.tolist()) + "\n"
+    return f"P3\n{width} {height}\n255\n" + "\n".join(rows.tolist()) + "\n"
+
+
+def write_ppm(framebuffer: np.ndarray, path: Optional[str] = None) -> None:
+    """ASCII P3, alpha dropped, one triplet per line; ``path=None`` writes
+    to stdout like the reference's ``None`` arm.
+
+    A file is written by the native C writer (byte-equal to
+    ``format_ppm``, ``tests/test_torch_native.py``); ``format_ppm`` writes
+    it only where the native library cannot be had (no compiler:
+    ``NativeUnavailable``).  Any other error of the library propagates."""
+    fb = _checked(framebuffer)
     if path is None:
-        sys.stdout.write(data)
-    else:
-        with open(path, "w") as f:
-            f.write(data)
+        sys.stdout.write(format_ppm(fb))
+        return
+    from . import native
+    if fb.shape[2] == 3:
+        fb = np.concatenate(
+            [fb, np.full(fb.shape[:2] + (1,), 255, np.uint8)], axis=-1)
+    try:
+        native.write_ppm_native(fb, path)
+        return
+    except native.NativeUnavailable:
+        pass
+    with open(path, "w") as f:
+        f.write(format_ppm(fb))
 
 
 def read_ppm(path: str) -> np.ndarray:

@@ -17,8 +17,12 @@ to the winning primitive only, and guarded square roots and divisions
 cotangents of masked lanes.  Geometric contractions are written as explicit
 multiply-adds (``contract3``) and never as a matrix product: a float32
 ``@`` may run in TF32 on Hopper, which rounds a K=3 product the way the
-TPU's bf16 pass did.  ``closest_hit_exact`` belongs to the parity renderer
-and comes with it.
+TPU's bf16 pass did.
+
+``closest_hit_exact`` is the parity renderer's single-ray closest hit in
+the reference's exact operation order (``raytracer_tpu/intersect.py:349``):
+dot products added left to right (``dot3``), square roots rounded once
+(``maths.sqrt_rn``).
 """
 
 from __future__ import annotations
@@ -34,7 +38,8 @@ from .scene import Scene, triangle_normals
 
 __all__ = ["INF", "T_MIN", "CHUNK", "contract3", "HitRecord", "ScenePack",
            "pack_scene", "sphere_hits_batch", "triangle_hits_batch",
-           "closest_hit_batch"]
+           "closest_hit_batch", "ExactPack", "exact_pack",
+           "closest_hit_exact"]
 
 INF = float("inf")
 T_MIN = float(np.float32(0.001))   # shadow-acne epsilon, common.rs:242,250
@@ -251,3 +256,131 @@ def closest_hit_batch(origin, direction, scene: Scene, pack: ScenePack,
     return HitRecord(t=t_best, position=origin + t_safe[:, None] * direction,
                      normal=torch.stack([nx, ny, nz], dim=-1),
                      mat=mat.to(torch.int32), hit=hit)
+
+
+# ---------------------------------------------------------------------------
+# Exact path (sequential parity renderer) -- the reference's operation order
+# ---------------------------------------------------------------------------
+
+def dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """x*x' + y*y' + z*z' over the last axis, added left to right as the
+    reference does (maths.rs:82): each product and sum rounded once, in
+    that order, on any device (a reduction op fixes no order)."""
+    x, y, z = (a * b).unbind(-1)
+    return (x + y) + z
+
+
+@dataclasses.dataclass(frozen=True)
+class ExactPack:
+    """The per-primitive constants of ``closest_hit_exact``, each the value
+    the reference computes per ray (so computing them once changes no bit):
+    r^2, the plane normal n = (v1 - v0) x (v2 - v0), n . v0, the three
+    edges and their start vertices; the rows a hit reads, triangles first
+    (unit normal, 1, material, 1) then spheres (centre, radius with 0 read
+    as 1, material, 0); and the constants the tests compare with, as
+    device tensors."""
+    center: torch.Tensor       # [S, 3]
+    r2: torch.Tensor           # [S]
+    sphere_valid: torch.Tensor  # [S]
+    n: torch.Tensor            # [T, 3] (common.rs:131-133, not normalised)
+    d: torch.Tensor            # [T] n . v0 (common.rs:140)
+    starts: torch.Tensor       # [3, T, 3] v0, v1, v2
+    edges_yzx: torch.Tensor    # [3, T, 3] v1 - v0, v2 - v1, v0 - v2 rolled
+    edges_zxy: torch.Tensor
+    tri_valid: torch.Tensor    # [T]
+    rows: torch.Tensor         # [T + S, 6]
+    consts: torch.Tensor       # [5] 0, 1, T_MIN, EPS8, inf
+
+
+def exact_pack(scene: Scene) -> ExactPack:
+    v0, v1, v2 = scene.tri_v0, scene.tri_v1, scene.tri_v2
+    n = maths.cross(v1 - v0, v2 - v0)
+    ln = maths.sqrt_rn(dot3(n, n))[:, None]
+    unit = n / torch.where(ln == 0.0, torch.ones_like(ln), ln)
+    r = scene.sphere_radius
+    edges = torch.stack([v1 - v0, v2 - v1, v0 - v2])
+    f32 = torch.float32
+
+    def col(x):
+        return x.to(f32)[:, None]
+
+    ones_t, zeros_s = torch.ones_like(v0[:, :1]), torch.zeros_like(r)
+    return ExactPack(
+        center=scene.sphere_center, r2=r * r,
+        sphere_valid=scene.sphere_valid,
+        n=n, d=dot3(n, v0), starts=torch.stack([v0, v1, v2]),
+        edges_yzx=edges.roll(-1, -1), edges_zxy=edges.roll(1, -1),
+        tri_valid=scene.tri_valid,
+        rows=torch.cat([
+            torch.cat([unit, ones_t, col(scene.tri_mat), ones_t], dim=1),
+            torch.cat([scene.sphere_center,
+                       col(torch.where(r == 0.0, torch.ones_like(r), r)),
+                       col(scene.sphere_mat), col(zeros_s)], dim=1)]),
+        consts=torch.tensor([0.0, 1.0, T_MIN, EPS8, INF], dtype=f32,
+                            device=scene.device))
+
+
+def _closest_hit_exact(origin, direction, pack: ExactPack,
+                       parity_plane_sign: bool) -> HitRecord:
+    """``closest_hit_exact`` over a prebuilt pack; t, hit and the material
+    (as float32) have shape [1]."""
+    zero, one, t_min, eps, inf = pack.consts.unbind()
+    # --- spheres: common.rs:74-97 (a == 1)
+    oc = origin - pack.center
+    half_b = dot3(oc, direction)
+    disc = half_b * half_b - (dot3(oc, oc) - pack.r2)
+    has_root = disc >= zero
+    sq = maths.sqrt_rn(torch.where(has_root, disc, one))
+    root1 = -half_b - sq
+    root2 = -half_b + sq
+    ts = torch.where(root1 > t_min, root1,
+                     torch.where(root2 > t_min, root2, inf))
+    ts = torch.where(has_root & pack.sphere_valid, ts, inf)
+
+    # --- triangles: common.rs:131-165
+    n = pack.n
+    cos_al = dot3(n, direction)
+    parallel = cos_al.abs() < eps       # -1e-8 < cos < 1e-8
+    n_dot_o = dot3(n, origin)
+    tt = ((n_dot_o + pack.d) if parity_plane_sign
+          else (pack.d - n_dot_o)) / torch.where(parallel, one, cos_al)
+    p = origin + tt[:, None] * direction
+    # edge k: n . (e_k x (p - v_k)) >= 0, the three edges at once; a cross
+    # product's middle term is rounded as -(ax bz - az bx) in the reference
+    # and as az bx - ax bz here: equal but for the sign of an exact zero,
+    # which no ">= 0" test sees
+    q = p - pack.starts
+    cr = pack.edges_yzx * q.roll(1, -1) - pack.edges_zxy * q.roll(-1, -1)
+    ok = ((dot3(n, cr) >= zero).all(0) & ~parallel & (tt >= t_min)
+          & pack.tri_valid)
+
+    # the first minimum of triangles-then-spheres: the first of equal
+    # sphere t and of equal triangle t wins, and a triangle wins a tie
+    # against a sphere (t_t <= t_s)
+    t_all = torch.cat([torch.where(ok, tt, inf), ts])
+    k = torch.argmin(t_all, 0, keepdim=True)
+    t = t_all.gather(0, k)
+    hit = torch.isfinite(t)
+    position = origin + torch.where(hit, t, zero) * direction
+    vec, rad, mat, is_tri = torch.index_select(pack.rows, 0, k)[0].split(
+        (3, 1, 1, 1))
+    sph_raw = (position - vec) / rad
+    ln = maths.sqrt_rn(dot3(sph_raw, sph_raw))
+    sph_n = sph_raw / torch.where(ln == zero, one, ln)
+    return HitRecord(t=t, position=position,
+                     normal=torch.where(is_tri > zero, vec, sph_n), mat=mat,
+                     hit=hit)
+
+
+def closest_hit_exact(origin, direction, scene: Scene,
+                      parity_plane_sign: bool = True) -> HitRecord:
+    """Single-ray (shape [3]) closest hit in the reference's exact
+    operation order (World::hit, common.rs:237-258): every dot product
+    added left to right, the first of equal sphere t and of equal triangle
+    t winning, a triangle winning a tie against a sphere (``t_t <= t_s``).
+    Vectorised only across primitives, with no host sync.  Returns a
+    HitRecord of 0-d tensors (position and normal [3], ``mat`` int32)."""
+    h = _closest_hit_exact(origin, direction, exact_pack(scene),
+                           parity_plane_sign)
+    return HitRecord(t=h.t[0], position=h.position, normal=h.normal,
+                     mat=h.mat[0].to(torch.int32), hit=h.hit[0])

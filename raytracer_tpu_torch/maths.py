@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["vec3", "dot", "cross", "length", "length_squared", "normalize",
-           "near_zero", "reflect", "refract", "lerp", "safe_sqrt"]
+           "near_zero", "reflect", "refract", "lerp", "safe_sqrt", "sqrt_rn"]
 
 
 class _SafeSqrt(torch.autograd.Function):
@@ -41,6 +41,18 @@ def safe_sqrt(x: torch.Tensor) -> torch.Tensor:
     x <= 0, so exactly-zero inputs on masked or grazing lanes (refract's
     ``sqrt(abs(1 - |r_perp|^2))``) never turn a zero cotangent into NaN."""
     return _SafeSqrt.apply(x)
+
+
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """float32 square root rounded once to nearest, as IEEE (and the
+    reference's ``f32::sqrt``) defines it, on any device: PyTorch's
+    vectorised float32 sqrt on the CPU is off by one ulp on ~0.7% of
+    inputs, while float64's, rounded to float32, is exact (53 >= 2 * 24 +
+    2 bits).  CUDA's float32 sqrt is IEEE's (nvcc's default
+    -prec-sqrt=true), so there it is taken directly."""
+    if x.is_cuda:
+        return torch.sqrt(x)
+    return torch.sqrt(x.to(torch.float64)).to(torch.float32)
 
 
 def vec3(x, y, z, dtype=torch.float32, device=None) -> torch.Tensor:

@@ -2,7 +2,7 @@
 
 The JAX package's parser cannot be imported without JAX (its package
 ``__init__`` imports JAX), so this is a copy; tests hold the two to the same
-fields and the same ``ParseError`` kinds.  ``to_oracle`` is not carried.
+fields and the same ``ParseError`` kinds.
 
 Re-derivation of the reference's hand-rolled zero-copy recursive-descent
 parser (``/root/reference/raytracer/src/parser.rs``), preserving its grammar
@@ -35,8 +35,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
+
 from . import scene as scene_mod
 from .camera import Camera
+from .oracle import OCamera, OMaterial, OSphere, OTriangle, OWorld
 from .scene import DIFFUSE, METAL, DIELECTRIC, EMISSION, Scene
 
 
@@ -160,7 +163,8 @@ class ParsedMaterial:
 
 @dataclasses.dataclass
 class ParsedWorld:
-    """Host-side parse result; convert with .to_scene() / .to_camera()."""
+    """Host-side parse result; convert with .to_scene() / .to_camera(), or
+    .to_oracle() for the golden oracle."""
     camera_origin: Tuple[float, float, float]
     camera_aspect: float
     materials: List[ParsedMaterial]
@@ -180,6 +184,21 @@ class ParsedWorld:
         """The DSL camera production is a new_at camera (parser.rs:162)."""
         return Camera.new_at(self.camera_origin, self.camera_aspect,
                              device=device)
+
+    def to_oracle(self) -> Tuple[OCamera, OWorld]:
+        """The oracle's camera and world (``oracle.ray_trace(world,
+        camera, ...)`` takes them in the other order)."""
+        omats = [OMaterial(kind=m.kind, color=np.array(m.color, np.float32),
+                           fuzz=m.fuzz, ir=m.ir)
+                 for m in self.materials]
+        ospheres = [OSphere(np.array(c, np.float32), r, omats[m])
+                    for (c, r, m) in self.spheres]
+        otris = [OTriangle(np.array(v0, np.float32), np.array(v1, np.float32),
+                           np.array(v2, np.float32), omats[m])
+                 for (v0, v1, v2, m) in self.triangles]
+        return (OCamera.new_at(np.array(self.camera_origin, np.float32),
+                               self.camera_aspect),
+                OWorld(ospheres, otris))
 
 
 def parse_camera(source: str) -> Optional[Tuple[str, Tuple[float, float, float], float]]:

@@ -1,6 +1,6 @@
 """Render front: options, the wavefront renderer, the forward
-``ray_trace`` entry point and the framebuffer finish (port of
-``raytracer_tpu/render.py`` without its parity renderer).
+``ray_trace`` entry point, the framebuffer finish and the sequential parity
+renderer (port of ``raytracer_tpu/render.py``).
 
 ``render_linear`` is the wavefront path tracer in plain PyTorch (the JAX
 package's ``"xla"`` engine): all pixels' rays for one sample form one batch,
@@ -15,8 +15,14 @@ throughput x the sky gradient; rays that run out of bounces add black.
 ``ray_trace`` renders through ``ops.render_linear_fast`` (K1, or K3 / K4
 for big meshes) on ``Options.device`` and turns the mean linear image into
 the reference's u8 framebuffer with ``finalize_image``
-(common.rs:334-356).  The sequential
-parity renderer of the JAX package is not ported yet.
+(common.rs:334-356).
+
+``render_parity`` / ``ray_trace_parity`` replicate the reference render bit
+for bit: ONE xorshift32 stream in raster order, each sample a step over
+device tensors (``closest_hit_exact``, ``scatter_exact``) that branches
+with ``torch.where`` and never syncs; on ``cuda`` the step is captured
+once as a CUDA graph and replayed a sample at a time.  Only tiny
+configurations are meant for it.
 """
 
 from __future__ import annotations
@@ -33,7 +39,7 @@ from .camera import Camera
 from .scene import Scene
 
 __all__ = ["Options", "trace_rays", "accumulate_samples", "render_linear",
-           "finalize_image", "ray_trace"]
+           "finalize_image", "ray_trace", "render_parity", "ray_trace_parity"]
 
 SKY_A = (1.0, 1.0, 1.0)
 SKY_B = (0.5, 0.7, 1.0)
@@ -213,3 +219,159 @@ def ray_trace(scene: Scene, camera: Camera, width: int, height: int,
         seed=options.seed, parity_plane_sign=options.parity_plane_sign,
         engine=options.engine, progress=options.logger)
     return finalize_image(mean).cpu().numpy(), int(segments)
+
+
+# ---------------------------------------------------------------------------
+# Sequential parity renderer -- exact xorshift32 stream, raster order
+# ---------------------------------------------------------------------------
+
+def render_parity(scene: Scene, camera: Camera, *, width: int, height: int,
+                  samples_per_pixel: int, depth: int,
+                  seed: int = rng.DEFAULT_SEED,
+                  parity_plane_sign: bool = True,
+                  device="cuda") -> torch.Tensor:
+    """The reference render's per-sample radiance [height, width, spp, 3]
+    on ``device``, bit for bit: ONE xorshift32 stream (seed 2547549,
+    random.rs:8-9) consumed in raster order -- u jitter, v jitter
+    (common.rs:335-336), then 3 bilateral draws per diffuse / metal scatter
+    (common.rs:32-38, materials.rs:44,56), nothing for dielectric, emission
+    or a miss -- exactly as the JAX package's scan consumes it
+    (``raytracer_tpu/render.py:264``).  Every bounce of the depth runs,
+    masked once the path is done.
+
+    One sample is one step over device buffers (the stream state, the
+    sample index, the radiance array) with no host sync.  On the CPU the
+    step runs once a sample; on CUDA it is captured once as a CUDA graph
+    and replayed once a sample, so a sample costs one launch from the host
+    instead of one launch per operation."""
+    dev = torch.device(device)
+    with torch.inference_mode():
+        step, buffers = _parity_step(
+            scene.to(dev), camera.to(dev), width, height, samples_per_pixel,
+            depth, seed, parity_plane_sign)
+        colors = buffers[-1]
+        n = colors.shape[0]
+        if dev.type == "cuda":
+            graph = _capture(step, buffers, dev)
+            for _ in range(n):
+                graph.replay()
+        else:
+            for _ in range(n):
+                step()
+        return colors.reshape(height, width, samples_per_pixel, 3)
+
+
+def _capture(step, buffers, dev) -> "torch.cuda.CUDAGraph":
+    """``step`` as a CUDA graph: its buffers are updated in place, so a
+    replay is one more sample.  One warm-up step on a side stream first
+    (every kernel loaded before the capture), its writes then undone."""
+    saved = [b.clone() for b in buffers]
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        step()
+        for b, v in zip(buffers, saved):
+            b.copy_(v)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.device(dev), torch.cuda.graph(graph):
+        step()
+    return graph
+
+
+def _parity_step(scene, camera, width, height, samples_per_pixel, depth,
+                 seed, parity_plane_sign):
+    """The per-sample step of ``render_parity`` over a scene and camera on
+    one device, and the buffers it updates in place: the stream state [1],
+    the sample index [1] and the radiance array [n, 3]."""
+    dev = scene.device
+    pack = intersect.exact_pack(scene)
+    mtab = materials_mod.material_table(scene.materials)
+
+    def f32(v):
+        return torch.tensor(v, dtype=torch.float32, device=dev)
+
+    # divisors are device tensors: a CUDA divide by a Python scalar
+    # multiplies by its reciprocal
+    w1, h1 = f32(float(width - 1)), f32(float(height - 1))
+    sky_a, sky_b = f32(SKY_A), f32(SKY_B)
+    origin, llc = camera.origin, camera.lower_left_corner
+    state = rng.as_int32(seed, dev).reshape(1)
+    index = torch.zeros(1, dtype=torch.int64, device=dev)
+    colors = torch.zeros((height * width * samples_per_pixel, 3),
+                         dtype=torch.float32, device=dev)
+
+    def step():
+        # raster order: row -> column -> sample (common.rs:327-334)
+        pixel = torch.div(index, samples_per_pixel, rounding_mode="floor")
+        row = torch.div(pixel, width, rounding_mode="floor")
+        col = pixel - row * width
+        st = rng.xorshift32(state)
+        u = (rng.random_f32_from_bits(st) + col.to(torch.float32)) / w1
+        st = rng.xorshift32(st)
+        v = (rng.random_f32_from_bits(st) + row.to(torch.float32)) / h1
+        # Camera::cast_ray (camera.rs:84-89), normalised as maths.rs:111-118
+        raw = ((llc + u * camera.horizontal) + v * camera.vertical) - origin
+        o, d = origin, raw / maths.sqrt_rn(intersect.dot3(raw, raw))
+        throughput = torch.ones(3, device=dev)
+        result = torch.zeros(3, device=dev)
+        done = torch.zeros(1, dtype=torch.bool, device=dev)
+        for _ in range(depth):
+            hit = intersect._closest_hit_exact(o, d, pack, parity_plane_sign)
+            row_m = materials_mod._material_row(mtab, hit.mat)
+            live = hit.hit & ~done
+            # diffuse and metal draw 3 values (kinds 0, 1: materials.rs:44,56)
+            will_draw = live & (row_m[0] <= 1.0)
+            s1 = rng.xorshift32(st)
+            s2 = rng.xorshift32(s1)
+            s3 = rng.xorshift32(s2)
+            st = torch.where(will_draw, s3, st)
+            bits = rng.random_f32_from_bits(torch.cat([s1, s2, s3]))
+            raw = bits * 2.0 - 1.0
+            sc = materials_mod._scatter_exact(
+                row_m, d, hit.normal, materials_mod._unit_rows(raw, raw))
+            miss = ~(hit.hit | done)
+            terminal = live & sc.terminal
+            cont = live & ~sc.terminal
+            # the sky lerp (common.rs:277-280) on the renormalised direction
+            t = 0.5 * (d[1] / maths.sqrt_rn(intersect.dot3(d, d)) + 1.0)
+            sky = sky_a * (1.0 - t) + sky_b * t
+            result = torch.where(miss, throughput * sky, result)
+            result = torch.where(terminal, throughput * sc.color, result)
+            throughput = torch.where(cont, throughput * sc.color, throughput)
+            o = torch.where(cont, hit.position, o)
+            d = torch.where(cont, sc.direction, d)
+            done = done | miss | terminal
+        # a path out of bounces keeps result 0 (black, common.rs:284)
+        colors.index_copy_(0, index, result[None])
+        state.copy_(st)
+        index.add_(1)
+
+    return step, (state, index, colors)
+
+
+def ray_trace_parity(scene: Scene, camera: Camera, width: int, height: int,
+                     samples_per_pixel: int, depth: int,
+                     seed: int = rng.DEFAULT_SEED,
+                     parity_plane_sign: bool = True,
+                     device="cuda") -> np.ndarray:
+    """Full parity render to a u8 RGBA framebuffer [height, width, 4]
+    (flipped), with the reference's accumulation arithmetic
+    (common.rs:334-356) on the host: the float32 sum in sample order,
+    * (1/spp), sqrt, * 255.999, and Rust's saturating cast (NaN -> 0)."""
+    colors = render_parity(
+        scene, camera, width=width, height=height,
+        samples_per_pixel=samples_per_pixel, depth=depth, seed=seed,
+        parity_plane_sign=parity_plane_sign, device=device)
+    colors = colors.cpu().numpy()  # [H, W, spp, 3]
+    h, w, spp, _ = colors.shape
+    inv = np.float32(1.0) / np.float32(spp)
+    acc = np.zeros((h, w, 3), np.float32)
+    for s in range(spp):
+        acc = acc + colors[:, :, s, :]
+    rgb = np.sqrt(acc * inv) * np.float32(255.999)
+    rgb = np.where(np.isnan(rgb), 0.0, np.clip(rgb, 0.0, 255.0))
+    rgb = rgb.astype(np.uint8)
+    a = np.full((h, w, 1), 255, np.uint8)
+    img = np.concatenate([rgb, a], axis=-1)
+    return img[::-1]

@@ -1,10 +1,15 @@
-"""Counter-based random numbers for the fast render path (torch).
+"""Deterministic random numbers, two ways (port of ``raytracer_tpu/rng.py``).
 
-Port of ``raytracer_tpu/rng.py``'s counter-based half: ``pcg3d`` (the
-public-domain hash of Jarzynski & Olano, "Hash Functions for GPU Rendering",
-JCGT 2020) maps three 32-bit counters to three 32-bit words, so every
-(pixel, sample, bounce) draws from its own stream with no state to thread.
-There is no global generator: the caller's seed is folded into the counters.
+1. ``xorshift32`` / ``XorShift32`` -- the reference's ONE sequential stream
+   (seed 2547549, random.rs:8-30), consumed in raster order by the oracle
+   and the sequential parity renderer (``render.ray_trace_parity``), with
+   the same ``u32 / u32::MAX`` float mapping (``random_f32_from_bits``,
+   random.rs:15-17).
+2. ``pcg3d`` -- the counter-based hash of the fast render path (the
+   public-domain hash of Jarzynski & Olano, "Hash Functions for GPU
+   Rendering", JCGT 2020): three 32-bit counters map to three 32-bit words,
+   so every (pixel, sample, bounce) draws from its own stream with no state
+   to thread.  The caller's seed is folded into the counters.
 
 Words are held in ``torch.int32`` and wrap like C's ``unsigned``: torch's
 ``uint32`` has no ``+`` and no ``>>``, and an ``int32`` right shift is
@@ -18,9 +23,9 @@ import numpy as np
 import torch
 
 __all__ = [
-    "DEFAULT_SEED", "SEED_MIX", "as_int32", "as_uint32", "seed_word",
-    "xorshift32", "pcg3d", "random_f32_from_bits24", "uniform2", "uniform3",
-    "uniform_bilateral3",
+    "DEFAULT_SEED", "SEED_MIX", "U32_MAX_F32", "as_int32", "as_uint32",
+    "seed_word", "xorshift32", "random_f32_from_bits", "XorShift32", "pcg3d",
+    "random_f32_from_bits24", "uniform2", "uniform3", "uniform_bilateral3",
 ]
 
 # random.rs:9 -- NonZeroU32::new(2547549)
@@ -29,6 +34,8 @@ DEFAULT_SEED = 2547549
 SEED_MIX = 0x85EBCA6B
 
 _MASK32 = 0xFFFFFFFF
+# ``x as f32 / u32::MAX as f32``: u32::MAX rounds to 2^32 in float32
+U32_MAX_F32 = np.float32(np.uint32(0xFFFFFFFF))
 # f32(1 / (2^24 - 1)), the constant rng.py:130 multiplies by
 INV_2_24_M1 = float(np.float32(1.0 / 16777215.0))
 
@@ -76,6 +83,41 @@ def xorshift32(state: torch.Tensor) -> torch.Tensor:
     x = x ^ _srl(x, 17)
     x = x ^ (x << 5)
     return x
+
+
+def random_f32_from_bits(bits: torch.Tensor) -> torch.Tensor:
+    """int32 words as their unsigned values in float32 (one
+    round-to-nearest, as Rust's ``u32 as f32``), over ``U32_MAX_F32``: a
+    uniform in [0, 1] (random.rs:15-17)."""
+    u = (as_int32(bits).to(torch.int64) & _MASK32).to(torch.float32)
+    return u / float(U32_MAX_F32)
+
+
+class XorShift32:
+    """Stateful host clone of the reference ``Random`` (numpy scalars), for
+    the oracle and tests; the device path threads its state as a tensor."""
+
+    def __init__(self, seed: int = DEFAULT_SEED):
+        if seed == 0:
+            raise ValueError("xorshift32 needs a non-zero seed")
+        self.state = np.uint32(seed)
+
+    def next_u32(self) -> np.uint32:
+        v = int(self.state)
+        v ^= (v << 13) & _MASK32
+        v ^= v >> 17
+        v ^= (v << 5) & _MASK32
+        self.state = np.uint32(v)
+        return self.state
+
+    def random_f32(self) -> np.float32:
+        """[0, 1] -- random.rs:15-17."""
+        return np.float32(np.float32(self.next_u32()) / U32_MAX_F32)
+
+    def random_bilateral_f32(self) -> np.float32:
+        """[-1, 1] -- random.rs:19-21."""
+        return np.float32(self.random_f32() * np.float32(2.0)
+                          - np.float32(1.0))
 
 
 def pcg3d(v0, v1, v2):

@@ -93,12 +93,15 @@ def test_cli_cuda_without_gpu_exits_nonzero(monkeypatch, tmp_path):
     assert not (tmp_path / "x.ppm").exists()
 
 
-@pytest.mark.parametrize("arg,words", [("parity=1", "parity renderer")])
-def test_cli_unported_options_exit_with_message(arg, words):
-    with pytest.raises(SystemExit) as e:
-        cli.main([arg, "device=cpu"])
-    assert "not ported yet" in str(e.value.code)
-    assert words in str(e.value.code) and "ROADMAP.md" in str(e.value.code)
+# the name and id are kept from when ``parity=1`` exited as unported
+@pytest.mark.parametrize("arg", ["parity=1"], ids=["parity=1-parity renderer"])
+def test_cli_unported_options_exit_with_message(arg, tmp_path, capsys):
+    # the sequential parity renderer on the CLI's device, no [stats] line
+    out = tmp_path / "p.ppm"
+    assert cli.main([arg, "device=cpu", "width=8", "samples=1",
+                     "ray_depth=1", f"out={out}"]) == 0
+    assert image.read_ppm(str(out)).shape == (4, 8, 4)
+    assert "[stats]" not in capsys.readouterr().err
 
 
 def test_cli_arguments():

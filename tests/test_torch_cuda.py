@@ -6,7 +6,8 @@ pixels; K5,
 K5s: winner ids equal, dsph, dtri and dcam within 1e-5 * max|ref| + 1e-7),
 K2 and K5s bitwise K1 and K5 over the same leaves, banding, the launch
 counters, a render-then-grad round trip through K1 and K5 and one through
-K2 and K5s, the mesh dispatch through K3, K4 and K6, and input checks.
+K2 and K5s, the mesh dispatch through K3, K4 and K6, input checks, and
+the parity renderer's graph replays bitwise its CPU steps.
 Marked ``cuda``: each test skips where there is no GPU.  On a GPU machine
 without JAX, run them without the suite's JAX conftest:
 ``python -m pytest tests/test_torch_cuda.py -q --noconftest``."""
@@ -640,3 +641,16 @@ def test_k1_lowp_packed_stage_bitwise_plain(dev, name):
     assert torch.equal(km, pm) and ks == ps
     f32, _ = wfc.render_linear_cuda(*args, **dict(kw, lowp=False))
     assert not torch.equal(km, f32)
+
+
+@pytest.mark.parametrize("name", ["default_world", "ffi_example_world"])
+def test_parity_graph_replays_are_the_cpu_steps(dev, name):
+    # the sequential parity renderer captures its per-sample step as a CUDA
+    # graph on the card; each replay is bitwise the CPU's eager step
+    w = getattr(rtt.models, name)()
+    kw = dict(width=8, height=5, samples_per_pixel=2, depth=4)
+    card = rtt.render.render_parity(w.to_scene(), w.to_camera(),
+                                    device=dev, **kw)
+    cpu = rtt.render.render_parity(w.to_scene(), w.to_camera(),
+                                   device="cpu", **kw)
+    assert card.is_cuda and torch.equal(card.cpu(), cpu)

@@ -43,6 +43,11 @@ MODULES = [
     "raytracer_tpu_torch.grad.inverse",
     "raytracer_tpu_torch.api",
     "raytracer_tpu_torch.cli",
+    "raytracer_tpu_torch.oracle",
+    "raytracer_tpu_torch.native",
+    "raytracer_tpu_torch.certify",
+    "raytracer_tpu_torch.viewer",
+    "raytracer_tpu_torch.httpviewer",
 ]
 
 # Each module is imported in the same fresh interpreter, one after the
