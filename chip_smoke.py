@@ -12,10 +12,11 @@ paths through the binned per-bounce kernel K3 and the
 streamed big-mesh kernel K4, the big-mesh gradient pass through K2 and
 K5s (K1 and K5 with the two-level leaf walk), the big-mesh frames past
 128 spp or 2^24 rays through the sorted per-bounce kernel K6, K1's
-bfloat16 sphere stage K1-lowp, the reference-parity path (the native C++
-engine, the oracle, the sequential parity renderer, the full-scale
-certification) and the browser viewer on the card, and fails (non-zero
-exit, no result line) if any phase fails:
+bfloat16 sphere stage K1-lowp, the silhouette gradients and their fits,
+the reference-parity path (the native C++ engine, the oracle, the
+sequential parity renderer, the full-scale certification) and the browser
+viewer on the card, and fails (non-zero exit, no result line) if any phase
+fails:
 
   1. device: a CUDA GPU is required; prints its name and power limit;
   2. build: compiles csrc/*.cu with nvcc (first use) and prints the time
@@ -66,8 +67,9 @@ exit, no result line) if any phase fails:
      gradient through ``grad.make_loss_fn(engine="auto")`` with exactly one
      K1 and one K5 launch; 5 Adam steps at lr 1e-2 through
      ``grad.make_train_step`` from that start, one K1 and one K5 launch
-     each, finite losses (recorded: interior gradients do not descend on
-     the geometry of this unmasked loss, in the JAX package either), then
+     each, finite losses (recorded: interior gradients alone do not
+     descend on the geometry of this unmasked loss, in the JAX package
+     either; phase 4g adds the boundary terms), then
      5 recovering mat_color from half of it on the same frame, one K1 and
      one K5 launch each: the loss stays finite and falls;
   4c. the mesh main paths at full width: ``api.RenderSession`` over
@@ -102,6 +104,23 @@ exit, no result line) if any phase fails:
   4f. the lowp study's frame (default world 512x512, 64 spp, depth 8,
      parity sign) through ``render_linear_cuda(lowp=True)``: one K1-lowp
      launch and nothing else;
+  4g. the silhouette path (``grad/silhouette.py``; no kernel lies on it,
+     as no Pallas kernel lies on the JAX package's): on the default world
+     (primary, mirror and glass estimators) and the FFI world (and the
+     triangle and mirrored-edge estimators) at 64x36, 2 spp, depth 4,
+     ``value_and_grad_with_silhouette(device="cuda")`` against
+     ``device="cpu"``: every grad leaf and each estimator's outputs within
+     1e-3 * max|cpu| + 1e-6, the loss within 1e-5 relative, identical edge
+     selections; 5 ``make_silhouette_train_step`` steps at the training
+     path's configuration (sphere_center + 0.02 and sphere_radius, Adam lr
+     1e-2): each step's ms (host clock ending in a sync) split into the
+     interior value-and-gradient and each estimator, peak device memory,
+     finite losses and 0 kernel launches; ``scripts/obj_silhouette_fit.py``
+     on OBJ-10k (64x64, 2 spp, depth 2, 30 Adam steps on a rigid offset)
+     with the script's two 0.6x bars, ms a step and peak memory; and
+     ``fit(silhouette=True, device="cuda")`` as
+     ``test_silhouette_fit_recovers_large_offset`` sets it up, with its
+     bars;
   5. throughput on the card: rays/s (traced segments / s) for the default
      world at 512x512, 64 spp, depth 8 and the random sphere field at
      512x512, 16 spp, depth 8, with K1's and the plain version's times;
@@ -732,7 +751,8 @@ def phase_train(rtt) -> dict:
         if v.grad is None or not torch.isfinite(v.grad).all() \
                 or not v.grad.any():
             raise SystemExit(f"training path: bad gradient for {k}")
-    # Interior gradients (no silhouette terms) do not descend on this
+    # make_loss_fn's interior gradients (no silhouette terms: those are
+    # phase 4g's make_silhouette_train_step) do not descend on this
     # unmasked loss for the geometry, in the JAX package either: the losses
     # are recorded, the launches and finiteness required
     losses, final, bench_launches = _adam_steps(loss_fn, start)
@@ -759,6 +779,289 @@ def phase_train(rtt) -> dict:
     return dict(k1_launches=counts[0] + bench_launches[0] + launches[0],
                 k5_launches=counts[1] + bench_launches[1] + launches[1],
                 loss0=losses[0], loss5=final)
+
+
+SIL_SMALL = dict(width=64, height=36, samples_per_pixel=2, depth=4)
+SIL_ESTIMATORS = ("silhouette_grad", "mirror_silhouette_grad",
+                  "glass_silhouette_grad", "triangle_silhouette_grad",
+                  "mirror_triangle_silhouette_grad")
+SIL_BAR = 1e-3
+MIRROR_SRC = """camera origin 0.0 0.0 0.0 aspect 1.0;
+material MIRROR : Metal color 0.9 0.8 0.7 fuzz 0.0;
+sphere center 0.0 0.0 -2.0 radius 0.9 material MIRROR;
+"""
+
+
+def _kernel_launches() -> int:
+    """The sum of every kernel's launch counter (K1, K1-lowp, K2, K3, K4,
+    K5, K5s, K6)."""
+    from raytracer_tpu_torch.ops.cuda import (wavefront, wavefront_binned,
+                                              wavefront_bwd,
+                                              wavefront_sorted,
+                                              wavefront_stream)
+    return (wavefront.LAUNCHES + wavefront.STREAM_LAUNCHES
+            + wavefront.LOWP_LAUNCHES + wavefront_bwd.LAUNCHES
+            + wavefront_bwd.STREAM_LAUNCHES + wavefront_binned.LAUNCHES
+            + wavefront_sorted.LAUNCHES + wavefront_stream.LAUNCHES)
+
+
+def _zero_kernel_launches() -> None:
+    from raytracer_tpu_torch.ops.cuda import (wavefront, wavefront_binned,
+                                              wavefront_bwd,
+                                              wavefront_sorted,
+                                              wavefront_stream)
+    wavefront.LAUNCHES = wavefront.STREAM_LAUNCHES = 0
+    wavefront.LOWP_LAUNCHES = 0
+    wavefront_bwd.LAUNCHES = wavefront_bwd.STREAM_LAUNCHES = 0
+    wavefront_binned.LAUNCHES = wavefront_sorted.LAUNCHES = 0
+    wavefront_stream.LAUNCHES = 0
+
+
+class _SilhouetteProbe:
+    """Wraps the silhouette module's interior term, its five estimators
+    and its top-k selection while active: records each call's outputs
+    (``record``) or its milliseconds on the card (host clock, a sync before
+    and after; ``timed``)."""
+
+    PARTS = ("_interior",) + SIL_ESTIMATORS
+
+    def __init__(self, timed: bool):
+        from raytracer_tpu_torch.grad import silhouette as sil
+        self.sil, self.timed = sil, timed
+        self.outputs, self.ms, self.picks = {}, {}, []
+
+    def __enter__(self):
+        self.saved = {n: getattr(self.sil, n) for n in self.PARTS + ("_top",)}
+        for name in self.PARTS:
+            setattr(self.sil, name, self._wrap(name, self.saved[name]))
+        top = self.saved["_top"]
+
+        def record_top(score, n):
+            out = top(score, n)
+            self.picks.append(out.cpu())
+            return out
+
+        self.sil._top = record_top
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.sil, name, fn)
+
+    def _wrap(self, name, fn):
+        def call(*args, **kwargs):
+            if self.timed:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            if self.timed:
+                torch.cuda.synchronize()
+                self.ms.setdefault(name, []).append(
+                    (time.perf_counter() - t0) * 1e3)
+            elif name != "_interior":
+                self.outputs[name] = [x.detach().cpu() for x in out]
+            return out
+        return call
+
+
+def _sil_agreement(rtt, world: str, fields) -> float:
+    """value_and_grad_with_silhouette on the card and on the CPU at
+    SIL_SMALL: every grad leaf and every estimator's output within
+    SIL_BAR * max|cpu| + 1e-6, the loss within 1e-5 relative, the same
+    edges selected.  Returns the worst gap over max|cpu|."""
+    from raytracer_tpu_torch import grad
+    w = getattr(rtt.models, world)()
+    scene, cam = w.to_scene(), w.to_camera()
+    target, _ = rtt.render_linear(scene, cam, seed=0, **SIL_SMALL)
+    # the training path's start: centres (and vertices) + 0.02, radii as
+    # they are (a radius x 1.03 puts the camera inside the ground sphere,
+    # whose silhouette then has NaN velocities, in the JAX package too)
+    params = grad.extract_params(scene, fields)
+    for k in params:
+        if k != "sphere_radius":
+            params[k] = params[k] + 0.02
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        with _SilhouetteProbe(timed=False) as probe:
+            loss, grads = grad.value_and_grad_with_silhouette(
+                scene, cam, target, params, seed=1, device=dev, **SIL_SMALL)
+        if not grads[fields[0]].device.type == dev:
+            raise SystemExit(f"silhouette: grads on {grads[fields[0]].device}"
+                             f", asked for {dev}")
+        runs[dev] = (float(loss), {k: v.cpu() for k, v in grads.items()},
+                     probe.outputs, probe.picks)
+    (lc, gc, ec, pc), (lh, gh, eh, ph) = runs["cuda"], runs["cpu"]
+    worst = 0.0
+    pairs = [(f"grad {k}", gc[k], gh[k]) for k in gh]
+    if set(ec) != set(eh):
+        raise SystemExit(f"silhouette {world}: estimators {sorted(ec)} on "
+                         f"the card, {sorted(eh)} on the CPU")
+    pairs += [(f"{n}[{i}]", a, b) for n in eh
+              for i, (a, b) in enumerate(zip(ec[n], eh[n]))]
+    for name, a, b in pairs:
+        if not torch.isfinite(a).all():
+            raise SystemExit(f"silhouette {world}: {name} not finite on the "
+                             f"card")
+        scale = float(b.abs().max()) if b.numel() else 0.0
+        gap = float((a - b).abs().max()) if b.numel() else 0.0
+        worst = max(worst, gap / max(scale, 1e-30))
+        if not gap <= SIL_BAR * scale + 1e-6:
+            raise SystemExit(f"silhouette {world}: {name} card vs CPU gap "
+                             f"{gap:.3e} over max|cpu| {scale:.3e}")
+    same_picks = len(pc) == len(ph) and all(
+        torch.equal(a, b) for a, b in zip(pc, ph))
+    log(f"  {world} {SIL_SMALL} {fields}: loss card {lc:.9e} CPU {lh:.9e}; "
+        f"estimators {sorted(eh)}; worst gap / max|cpu| {worst:.3e}; "
+        f"{len(ph)} edge selections identical: {same_picks}")
+    if not abs(lc - lh) <= 1e-5 * abs(lh) or not same_picks:
+        raise SystemExit(f"silhouette {world}: loss {lc} vs {lh}, selections "
+                         f"identical {same_picks}")
+    return worst
+
+
+def _sil_train(rtt) -> dict:
+    """5 silhouette train steps at GRAD_FULL: ms a step and its split,
+    peak memory, kernel launches (0: the path runs outside the kernels)."""
+    from raytracer_tpu_torch import grad
+    dev = torch.device("cuda")
+    w = rtt.models.default_world()
+    scene, cam = w.to_scene(dev), w.to_camera(dev)
+    with torch.no_grad():
+        target, _ = rtt.render_linear(scene, cam, seed=0, **GRAD_FULL)
+    params = grad.extract_params(scene, ["sphere_center", "sphere_radius"])
+    params["sphere_center"] = params["sphere_center"] + 0.02
+    params = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+    step = grad.make_silhouette_train_step(
+        scene, cam, target, torch.optim.Adam(params.values(), lr=1e-2),
+        seed=1, device="cuda", **GRAD_FULL)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_kernel_launches()
+    losses, step_ms = [], []
+    with _SilhouetteProbe(timed=True) as probe:
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(step(params)))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = _kernel_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    split = {n: probe.ms.get(n, []) for n in probe.PARTS}
+    log(f"  training path, default world {GRAD_FULL}, sphere_center + 0.02 "
+        f"and sphere_radius, Adam lr 1e-2: losses {losses}")
+    log(f"    step ms {[round(t, 3) for t in step_ms]}; peak device memory "
+        f"{peak:.3f} GiB; kernel launches over the 5 steps {launches}")
+    for n, ts in split.items():
+        log(f"    {n}: ms {[round(t, 3) for t in ts]}")
+    if launches != 0 or not all(np.isfinite(losses)):
+        raise SystemExit(f"silhouette training path: kernel launches "
+                         f"{launches}, losses {losses}")
+    if any(len(ts) != 5 for n, ts in split.items()
+           if n not in ("triangle_silhouette_grad",
+                        "mirror_triangle_silhouette_grad")):
+        raise SystemExit(f"silhouette training path: estimator calls "
+                         f"{ {n: len(ts) for n, ts in split.items()} }")
+    return dict(losses=losses, step_ms=step_ms, peak_gib=peak,
+                split={n: statistics.median(ts) for n, ts in split.items()
+                       if ts}, launches=launches)
+
+
+def _sil_obj_fit(rtt) -> dict:
+    """scripts/obj_silhouette_fit.py on the card: a rigid offset of the
+    OBJ-10k mesh recovered through value_and_grad_with_silhouette, with the
+    script's bars."""
+    from raytracer_tpu_torch import grad
+    dev = torch.device("cuda")
+    scene, cam = rtt.models.obj_mesh_scene(device=dev)
+    if scene.num_triangles != 10240:
+        raise SystemExit(f"OBJ fit: {scene.num_triangles} triangles")
+    kw = dict(width=64, height=64, samples_per_pixel=2, depth=2,
+              parity_plane_sign=False, seed=3)
+    with torch.no_grad():
+        target, _ = rtt.render_linear(scene, cam, **kw)
+    base = grad.extract_params(scene, ["tri_v0", "tri_v1", "tri_v2"])
+    off = torch.tensor([0.06, -0.04, 0.0], device=dev)
+    t_est = off.clone().requires_grad_(True)
+    opt = torch.optim.Adam([t_est], lr=1.5e-2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    t0 = time.perf_counter()
+    with _SilhouetteProbe(timed=True) as probe:
+        for i in range(30):
+            cur = {k: v + t_est.detach() for k, v in base.items()}
+            loss, grads = grad.value_and_grad_with_silhouette(
+                scene, cam, target, cur, samples_per_edge=4,
+                max_edges=1024, device=dev, **kw)
+            # dL/dt of v_k = v_k0 + t: the per-vertex gradients summed
+            t_est.grad = sum(g.sum(0) for g in grads.values())
+            opt.step()
+            losses.append(float(loss))
+            if i % 5 == 0:
+                log(f"    step {i}: loss {losses[-1]:.6e} t "
+                    f"{t_est.detach().cpu().numpy()}")
+    torch.cuda.synchronize()
+    sec = (time.perf_counter() - t0) / 30
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    err0 = float(off.abs().mean())
+    err1 = float(t_est.detach().abs().mean())
+    split = {n: statistics.median(ts) for n, ts in probe.ms.items()}
+    log(f"  OBJ-10k silhouette fit (64x64, 2 spp, depth 2, correct sign, "
+        f"samples_per_edge 4, max_edges 1024, 30 Adam steps at 1.5e-2): "
+        f"loss {losses[0]:.6e} -> {losses[-1]:.6e}, mean |offset error| "
+        f"{err0:.6f} -> {err1:.6f}; {sec * 1e3:.3f} ms a step (medians: "
+        + ", ".join(f"{n} {ms:.3f} ms" for n, ms in split.items())
+        + f"), peak device memory {peak:.3f} GiB")
+    if not (losses[-1] < 0.6 * losses[0] and err1 < 0.6 * err0):
+        raise SystemExit("OBJ silhouette fit: the script's bars not met")
+    return dict(loss=(losses[0], losses[-1]), err=(err0, err1),
+                s_step=sec, split=split, peak_gib=peak)
+
+
+def _sil_fit(rtt) -> dict:
+    """fit(silhouette=True, device="cuda") as
+    test_silhouette_fit_recovers_large_offset sets it up, with its bars."""
+    from raytracer_tpu_torch import grad
+    w = rtt.parse_input(MIRROR_SRC)
+    scene, cam = w.to_scene(), w.to_camera()
+    kw = dict(width=24, height=24, samples_per_pixel=2, depth=2, seed=4)
+    target, _ = rtt.render_linear(scene, cam, **kw)
+    p0 = grad.extract_params(scene, ["sphere_center"])
+    true_c = p0["sphere_center"].clone()
+    p0["sphere_center"] = p0["sphere_center"] + torch.tensor(
+        [[0.22, -0.18, 0.0]])
+    err0 = float((p0["sphere_center"] - true_c).abs().max())
+    t0 = time.perf_counter()
+    res = grad.fit(scene, cam, target, p0, steps=40, learning_rate=2e-2,
+                   silhouette=True, device="cuda", **kw)
+    sec = time.perf_counter() - t0
+    c = res.params["sphere_center"]
+    if c.device.type != "cuda":
+        raise SystemExit(f"silhouette fit: params on {c.device}")
+    err1 = float((c.cpu() - true_c).abs().max())
+    log(f"  fit(silhouette=True) MIRROR_SRC 24x24, 2 spp, depth 2, 40 steps "
+        f"at lr 2e-2: loss {res.losses[0]:.6e} -> {res.losses[-1]:.6e}, max "
+        f"|centre error| {err0:.4f} -> {err1:.4f} ({sec:.2f} s)")
+    if not (res.losses[-1] < 0.6 * res.losses[0] and err1 < 0.5 * err0):
+        raise SystemExit("silhouette fit: the JAX test's bars not met")
+    return dict(loss=(res.losses[0], res.losses[-1]), err=(err0, err1),
+                seconds=sec)
+
+
+def phase_silhouette(rtt, smi: str) -> dict:
+    """4g: the silhouette path (grad/silhouette.py) on the card."""
+    t0 = time.perf_counter()
+    log(f"\nthe silhouette path on {smi}: card against CPU")
+    worst = max(_sil_agreement(rtt, "default_world",
+                               ["sphere_center", "sphere_radius"]),
+                _sil_agreement(rtt, "ffi_example_world",
+                               ["sphere_center", "sphere_radius", "tri_v0",
+                                "tri_v1", "tri_v2"]))
+    out = dict(worst=worst, train=_sil_train(rtt), obj=_sil_obj_fit(rtt),
+               fit=_sil_fit(rtt))
+    log(f"  silhouette phase: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def phase_grad_throughput(rtt, smi: str) -> dict:
@@ -3581,6 +3884,7 @@ def main() -> int:
     lowp_err = phase_lowp_vs_plain(rtt)
     launches, cli_k1_ms, cli_bound, cli_fb = phase_main_path(rtt)
     train = phase_train(rtt)
+    phase_silhouette(rtt, smi)
     mesh_main = phase_mesh_main_paths(rtt, scenes)
     mgrad = phase_mesh_grad(rtt, scenes)
     smain = phase_sorted_main_paths(rtt, scenes)

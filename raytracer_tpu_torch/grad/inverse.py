@@ -4,8 +4,9 @@ Port of ``raytracer_tpu/grad/inverse.py``.  The loss is L2 on the LINEAR
 mean radiance image (before gamma and the u8 cast), rendered with a fixed
 seed so the objective is deterministic.  Gradients follow the selected
 branch of every hit and material decision (correct almost everywhere;
-visibility-boundary terms are left out, the standard differentiable
-ray-tracing baseline).
+``make_loss_fn`` leaves the visibility-boundary terms out, the standard
+differentiable ray-tracing baseline, and the silhouette step below adds
+them).
 
 Engines of ``make_loss_fn`` (the JAX names, mapped onto the port):
 
@@ -28,11 +29,14 @@ camera, target and params move there, and a CUDA device without a GPU
 raises rather than fall back to the CPU (``device="cpu"`` asks for it).
 PyTorch's ``torch.optim`` takes the place of optax: the optimiser owns the
 param tensors and a train step updates them in place.
-``torch.optim.Adam``'s defaults are ``optax.adam``'s.  Not ported yet, and
-raising ``NotImplementedError``:
+``torch.optim.Adam``'s defaults are ``optax.adam``'s.
+``make_silhouette_train_step`` and ``fit(silhouette=True)`` add the
+visibility-boundary terms of ``grad/silhouette.py`` to the interior
+gradient, so geometry can be pulled across its own silhouette under the
+unmasked loss.  Not ported yet, and raising ``NotImplementedError``:
 sharded rendering (``mesh=``, the ``parallel/`` item of ROADMAP.md's
-modules still to port) and the silhouette gradients (``grad/silhouette.py``,
-the ``silhouette`` item there).
+modules still to port); the silhouette fit is single-device, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -56,9 +60,6 @@ ENGINES = ("auto", "xla", "pallas")
 
 _NO_MESH = ("mesh= is not ported yet: sharded rendering is the 'parallel/' "
             "item of ROADMAP.md's modules still to port")
-_NO_SILHOUETTE = ("silhouette gradients are not ported yet: "
-                  "grad/silhouette.py is the 'silhouette' item of "
-                  "ROADMAP.md's modules still to port")
 
 
 def image_loss(rendered_linear: torch.Tensor, target_linear: torch.Tensor
@@ -145,9 +146,40 @@ def make_train_step(loss_fn: Callable, optimizer: torch.optim.Optimizer
     return step
 
 
-def make_silhouette_train_step(*args, **kwargs):
-    """Not ported yet (``grad/silhouette.py``)."""
-    raise NotImplementedError(_NO_SILHOUETTE)
+def make_silhouette_train_step(scene: Scene, camera: Camera, target,
+                               optimizer: torch.optim.Optimizer, *,
+                               width: int, height: int,
+                               samples_per_pixel: int, depth: int,
+                               parity_plane_sign: bool = True,
+                               seed: int = 0, n_edge: int = 512,
+                               samples_per_edge: int = 16,
+                               max_edges: Optional[int] = None,
+                               device="cuda") -> Callable:
+    """Train step whose gradients include the visibility-boundary terms
+    (``grad/silhouette.py``): optimisation can move a silhouette across the
+    image instead of stalling where interior gradients vanish.
+    ``optimizer`` owns the param tensors: ``step(params)`` sets each
+    tensor's ``.grad`` from ``value_and_grad_with_silhouette``, steps, and
+    returns the loss before the update."""
+    from .silhouette import MAX_EDGE_SAMPLES, value_and_grad_with_silhouette
+    me = MAX_EDGE_SAMPLES if max_edges is None else max_edges
+    device = _device(device)
+    scene, camera = _move(scene, device), _move(camera, device)
+    shape = dict(width=width, height=height,
+                 samples_per_pixel=samples_per_pixel, depth=depth,
+                 parity_plane_sign=parity_plane_sign, seed=seed,
+                 n_edge=n_edge, samples_per_edge=samples_per_edge,
+                 max_edges=me, device=device)
+
+    def step(params: Mapping[str, torch.Tensor]) -> torch.Tensor:
+        loss, grads = value_and_grad_with_silhouette(
+            scene, camera, target, params, **shape)
+        for k, v in params.items():
+            v.grad = grads[k].to(v.device)
+        optimizer.step()
+        return loss
+
+    return step
 
 
 @dataclasses.dataclass
@@ -173,21 +205,25 @@ def fit(scene: Scene, camera: Camera, target_linear,
     changed.  With ``checkpoint_path`` and ``resume``, a checkpoint found
     there restores the params, the optimiser state, the step and the
     losses, and the fit runs on from that step.  The optimised params live
-    on ``device``."""
+    on ``device``.  ``silhouette=True`` adds the visibility-boundary terms
+    (``make_silhouette_train_step``); that fit is single-device."""
     if mesh is not None:
         raise NotImplementedError(_NO_MESH)
-    if silhouette:
-        raise NotImplementedError(_NO_SILHOUETTE)
     device = _device(device)
     params = {k: v.detach().to(device).clone().requires_grad_(True)
               for k, v in params_init.items()}
     make_opt = optimizer or (lambda ps: torch.optim.Adam(
         ps, lr=learning_rate))
     opt = make_opt(list(params.values()))
-    step_fn = make_train_step(make_loss_fn(
-        scene, camera, target_linear, width=width, height=height,
-        samples_per_pixel=samples_per_pixel, depth=depth, seed=seed,
-        device=device), opt)
+    shape = dict(width=width, height=height,
+                 samples_per_pixel=samples_per_pixel, depth=depth, seed=seed,
+                 device=device)
+    if silhouette:
+        step_fn = make_silhouette_train_step(scene, camera, target_linear,
+                                             opt, **shape)
+    else:
+        step_fn = make_train_step(make_loss_fn(
+            scene, camera, target_linear, **shape), opt)
 
     start_step = 0
     losses: List[float] = []

@@ -41,6 +41,7 @@ MODULES = [
     "raytracer_tpu_torch.grad.params",
     "raytracer_tpu_torch.grad.finite_diff",
     "raytracer_tpu_torch.grad.inverse",
+    "raytracer_tpu_torch.grad.silhouette",
     "raytracer_tpu_torch.api",
     "raytracer_tpu_torch.cli",
     "raytracer_tpu_torch.oracle",

@@ -145,8 +145,7 @@ def test_train_steps_through_kernel_path_reduce_loss():
     assert losses[-1] < losses[0]
 
 
-@pytest.mark.parametrize("call", ["make_silhouette_train_step",
-                                  "fit_silhouette", "fit_mesh",
+@pytest.mark.parametrize("call", ["fit_silhouette_mesh", "fit_mesh",
                                   "loss_mesh"])
 def test_unported_options_raise(call):
     w = rtt.models.sphere_and_ground()
@@ -155,21 +154,24 @@ def test_unported_options_raise(call):
     target = torch.zeros(4, 4, 3)
     params = tgrad.extract_params(scene, ["mat_color"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if call == "make_silhouette_train_step":
-            tgrad.make_silhouette_train_step(scene, cam, target, None, **kw)
-        elif call == "fit_silhouette":
-            tgrad.fit(scene, cam, target, params, silhouette=True, **kw)
+        if call == "fit_silhouette_mesh":
+            # the silhouette fit is single-device, as in the JAX package
+            tgrad.fit(scene, cam, target, params, silhouette=True,
+                      mesh=object(), **kw)
         elif call == "fit_mesh":
             tgrad.fit(scene, cam, target, params, mesh=object(), **kw)
         else:
             tgrad.make_loss_fn(scene, cam, target, mesh=object(), **kw)
 
 
-@pytest.mark.parametrize("call", ["make_loss_fn", "fit"])
+@pytest.mark.parametrize("call", ["make_loss_fn", "fit",
+                                  "make_silhouette_train_step",
+                                  "value_and_grad_with_silhouette"])
 def test_default_device_is_the_card_and_raises_without_one(call,
                                                            monkeypatch):
-    """make_loss_fn and fit run on device="cuda" unless told otherwise:
-    with no GPU they raise, naming device="cpu", and never fall back."""
+    """make_loss_fn, fit and the silhouette entry points run on
+    device="cuda" unless told otherwise: with no GPU they raise, naming
+    device="cpu", and never fall back."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     w = rtt.models.sphere_and_ground()
     scene, cam = w.to_scene(), w.to_camera()
@@ -179,5 +181,11 @@ def test_default_device_is_the_card_and_raises_without_one(call,
     with pytest.raises(RuntimeError, match='device="cpu"'):
         if call == "fit":
             tgrad.fit(scene, cam, target, params, steps=1, **kw)
+        elif call == "make_silhouette_train_step":
+            tgrad.make_silhouette_train_step(
+                scene, cam, target, torch.optim.Adam(params.values()), **kw)
+        elif call == "value_and_grad_with_silhouette":
+            tgrad.value_and_grad_with_silhouette(scene, cam, target, params,
+                                                 **kw)
         else:
             tgrad.make_loss_fn(scene, cam, target, engine="auto", **kw)
