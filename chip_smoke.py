@@ -192,7 +192,26 @@ fails:
      the first PNG bitwise a fresh identical session's ``frame()``, and
      ``viewer.framebuffer_to_ansi`` of it; then a mesh session over the
      5120-triangle icosphere resolving to ``cuda_binned``, whose polls
-     launch K3 and no other kernel.
+     launch K3 and no other kernel;
+  4h. the sharded paths (``parallel/``) on one card, through meshes that
+     name it 4 and 3 times (the shards run one after another), each frame
+     against the one-device frame of the same kernel: K1 row-sharded at
+     the headline (default world 512x512, 64 spp, depth 8) and K4 at the
+     sorted frame (OBJ-10k 512x512, 256 spp, depth 4, which the sharded
+     path sends to the streamed engine), bitwise with equal segments; K3
+     on interleaved tile rows, uncapped, at the OBJ-10k session frame
+     (512x288, 4 spp, depth 4) and at 6 spp (parts 4 + 2), with 3c's bar
+     (differing pixels reported); each shard's kernel ms (its calls
+     replayed by CUDA events) and segments, the work and time balance
+     (mean / max) and the sum of the shards against one whole launch;
+     the gradient passes at bench.py's shapes (default world K1 + K5,
+     OBJ-10k K1 + K5 over leaves, 164k K2 + K5s) through
+     ``make_loss_fn(mesh=)``, n launches of each kernel, the value within
+     1e-4 relative and every gradient leaf within 1e-3 * max|ref| + 1e-7;
+     then the process-group path at world size 1 over NCCL (a file
+     rendezvous): ``make_loss_fn(mesh=)`` on the group's mesh and on 4
+     shards of it within the same bars, and 5 ``fit(mesh=)`` steps whose
+     loss falls.
 
 After the phases a line sums each of the eight kernels' device time over
 this run's main-path launches (launches x the time at their shapes; K1's
@@ -3559,6 +3578,286 @@ def compare_times_main(paths) -> int:
 # certification) and the viewers: phases 6a-6d
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# 4h: the sharded paths (parallel/) on one card
+# ---------------------------------------------------------------------------
+
+SHARDS = (4, 3)
+HEADLINE = dict(width=512, height=512, samples_per_pixel=64, depth=8)
+SORTED_K4 = dict(width=512, height=512, samples_per_pixel=256, depth=4)
+
+
+def _shard_mesh(n):
+    """A one-process mesh that names the one card ``n`` times: its shards
+    run one after another."""
+    from raytracer_tpu_torch import parallel
+    return parallel.Mesh(["cuda:0"] * n)
+
+
+def _shard_image(name, got, want, bitwise):
+    """A sharded frame against the one-device frame of the same kernel:
+    equal segments and, bitwise or with 3c's bar (max|diff| <= TOL but on
+    at most 0.01% of the pixels: exact triangle ties, each reported).
+    Returns max|diff|."""
+    (gm, gs), (wm, ws) = got, want
+    if gm.shape != wm.shape or not torch.isfinite(gm).all():
+        raise SystemExit(f"4h {name}: shape {tuple(gm.shape)} against "
+                         f"{tuple(wm.shape)}, or not finite")
+    d = (gm - wm).abs().amax(dim=-1)
+    err = float(d.max())
+    diff = (d > 0).nonzero().tolist()
+    over = int((d > TOL).sum())
+    log(f"  {name}: segments {gs} against {ws}, max|diff| {err:.3e}, "
+        f"{len(diff)} pixels differ" + (f": {diff[:8]}" if diff else "")
+        + ("" if bitwise else f", {over} over {TOL}"))
+    if gs != ws or (diff if bitwise else over > 1e-4 * d.numel()):
+        raise SystemExit(f"4h {name}: the sharded frame differs from the "
+                         f"one-device frame")
+    return err
+
+
+def _balance(label, n, shard_ms, shard_segs, whole_ms, smi):
+    """Per-shard ms and segments, the work and time balance (mean / max)
+    and the sum of the shards against one whole launch."""
+    work = statistics.mean(shard_segs) / max(shard_segs)
+    timeb = statistics.mean(shard_ms) / max(shard_ms)
+    log(f"  {label}, {n} shards on one card: shard ms "
+        f"{[round(x, 4) for x in shard_ms]}, segments {shard_segs}; work "
+        f"balance {work:.4f}, time balance {timeb:.4f}; sum of shards "
+        f"{sum(shard_ms):.4f} ms against one whole launch {whole_ms:.4f} ms "
+        f"({sum(shard_ms) / whole_ms:.3f}x); {smi}")
+    return dict(shard_ms=shard_ms, segments=shard_segs, work=work,
+                time=timeb, sum_ms=sum(shard_ms), whole_ms=whole_ms)
+
+
+def _rows_sharded(rtt, smi, label, scene, cam, shape, engine, module, fn,
+                  kernel):
+    """K1 or K4 row-sharded over 4 and 3 shards against its one-device
+    frame, bitwise; each shard's call replayed by CUDA events."""
+    from raytracer_tpu_torch import ops, parallel
+    dev = torch.device("cuda")
+    with _Recorder(module, fn) as whole_call:
+        want = ops.render_linear_fast(scene, cam, device=dev, seed=1,
+                                      engine=engine, **shape)
+    whole_ms = _replay_ms(whole_call.real, *whole_call.calls[0][:2])
+    out, launches = {}, 0
+    for n in SHARDS:
+        with _Recorder(module, fn) as shards:
+            _zero_counts()
+            got = parallel.render_linear_sharded_fast(
+                scene, cam, mesh=_shard_mesh(n), seed=1, engine="auto",
+                **shape)
+            torch.cuda.synchronize()
+            counts = _read_counts()
+        if counts != _only(**{kernel: n}):
+            raise SystemExit(f"4h {label}: launches {counts}, expected {n} "
+                             f"{kernel}")
+        launches += n
+        _shard_image(f"{label}, {n} shards ({kernel})", got, want, True)
+        out[n] = _balance(label, n, shards.replay_ms(),
+                          [c[2][1] for c in shards.calls], whole_ms, smi)
+    return out, launches
+
+
+def _binned_whole(args, kw, shape):
+    """The one-device K3 frame, uncapped, its spp in power-of-two parts
+    summed as ``ops._render_binned`` sums them."""
+    from raytracer_tpu_torch import ops
+    from raytracer_tpu_torch.ops.cuda import wavefront_binned as wb
+    spp = shape["samples_per_pixel"]
+    parts = ops._binned_spp_parts(spp)
+    total, segs, offset = None, 0, 0
+    for part in parts:
+        mean, s = wb.render_linear_binned(
+            *args, **dict(shape, samples_per_pixel=part), seed=1,
+            sample_offset=offset, **kw)
+        if len(parts) == 1:
+            return mean, s
+        total = mean * float(part) if total is None else \
+            total + mean * float(part)
+        segs += s
+        offset += part
+    return total * (1.0 / spp), segs
+
+
+def _k3_sharded(rtt, smi, scene, cam):
+    """K3 on interleaved tile rows, uncapped, against the one-device
+    uncapped frame: the OBJ-10k session frame and a 6-spp frame (parts 4 +
+    2); each shard's passes replayed by CUDA events."""
+    from raytracer_tpu_torch import ops, parallel
+    from raytracer_tpu_torch.ops import tables
+    from raytracer_tpu_torch.ops.cuda import wavefront_binned as wb
+    dev = torch.device("cuda")
+    args, kw = _binned_args(ops, tables, scene, cam, dev)
+    out, launches, worst = {}, 0, 0.0
+    for label, shape in (("OBJ-10k session frame", API_SHAPE),
+                         ("OBJ-10k 6 spp", dict(API_SHAPE,
+                                                samples_per_pixel=6))):
+        with _Recorder(wb, "binned_pass_cuda") as whole_passes:
+            want = _binned_whole(args, kw, shape)
+        whole_ms = sum(whole_passes.replay_ms())
+        depth = shape["depth"]
+        parts = len(ops._binned_spp_parts(shape["samples_per_pixel"]))
+        for n in SHARDS:
+            with _Recorder(wb, "binned_pass_cuda") as passes, \
+                    _Recorder(wb, "render_linear_binned") as frames:
+                _zero_counts()
+                got = parallel.render_linear_sharded_fast(
+                    scene, cam, mesh=_shard_mesh(n), seed=1,
+                    engine="cuda_binned", **shape)
+                torch.cuda.synchronize()
+                counts = _read_counts()
+            if counts != _only(K3=n * depth * parts):
+                raise SystemExit(f"4h {label}: launches {counts}, "
+                                 f"expected {n * depth * parts} K3")
+            if any("bounce_caps" in k for _, k, _ in frames.calls):
+                raise SystemExit(f"4h {label}: a sharded frame ran capped")
+            launches += counts["K3"]
+            worst = max(worst, _shard_image(
+                f"{label}, {n} shards (K3 on tile rows)", got, want, False))
+            ms = passes.replay_ms()
+            shard_ms = [sum(m for m, (_, k, _) in zip(ms, passes.calls)
+                            if k["ty_off"] == i) for i in range(n)]
+            shard_segs = [sum(f[2][1] for f in frames.calls
+                              if f[1]["tile_row_offset"] == i)
+                          for i in range(n)]
+            out[(label, n)] = _balance(label, n, shard_ms, shard_segs,
+                                       whole_ms, smi)
+    return out, launches, worst
+
+
+def _grad_sharded(rtt, scenes):
+    """The gradient passes at bench.py's shapes, sharded over 4 and 3
+    shards against one device: the value within 1e-4 relative, every
+    gradient leaf within 1e-3 * max|ref| + 1e-7 (tests/test_sharding.py's
+    bars), and n launches of each kernel of the pass."""
+    from raytracer_tpu_torch import grad
+    dev = torch.device("cuda")
+    launches = {k: 0 for k in _counters()}
+    cases = []
+    scene, cam, target, loss_fn, start = _bench_grad(rtt)
+    cases.append(("default world", scene, cam, target, loss_fn, start,
+                  dict(GRAD_FULL, seed=1, engine="pallas"), ("K1", "K5")))
+    for label, walk in (("OBJ-10k", ("K1", "K5")), ("164k", ("K2", "K5s"))):
+        scene, cam = (x.to(dev) for x in scenes[label])
+        loss_fn, start, shape, target = _mesh_grad_setup(rtt, scene, cam,
+                                                         label)
+        cases.append((label, scene, cam, target, loss_fn, start,
+                      dict(shape, seed=1, parity_plane_sign=False,
+                           engine="pallas"), walk))
+    for label, scene, cam, target, loss_fn, start, kw, (fwd, bwd) in cases:
+        v1, g1 = _value_and_grad(loss_fn, start)
+        for n in SHARDS:
+            sharded = grad.make_loss_fn(scene, cam, target,
+                                        mesh=_shard_mesh(n), **kw)
+            _zero_counts()
+            v2, g2 = _value_and_grad(sharded, start)
+            torch.cuda.synchronize()
+            counts = _read_counts()
+            if counts != _only(**{fwd: n, bwd: n}):
+                raise SystemExit(f"4h {label} gradient pass: launches "
+                                 f"{counts}, expected {n} {fwd} and {bwd}")
+            for k in (fwd, bwd):
+                launches[k] += n
+            rel = abs(float(v1) - float(v2)) / max(abs(float(v1)), 1e-30)
+            errs = {k: float((g1[k] - g2[k]).abs().max()) for k in g1}
+            scales = {k: float(g1[k].abs().max()) for k in g1}
+            log(f"  {label} gradient pass, {n} shards ({fwd} + {bwd}): "
+                f"loss {float(v2):.9e} against {float(v1):.9e} (rel "
+                f"{rel:.3e}); max|diff| "
+                + ", ".join(f"{k} {errs[k]:.3e} (scale {scales[k]:.3e})"
+                            for k in errs))
+            if rel > 1e-4 or any(
+                    not torch.isfinite(g2[k]).all()
+                    or errs[k] > 1e-3 * max(scales[k], 1e-8) + 1e-7
+                    for k in errs):
+                raise SystemExit(f"4h {label}: sharded gradients outside "
+                                 f"the bars")
+    return launches
+
+
+def _process_group(rtt):
+    """The process-group path at world size 1 over NCCL (a file
+    rendezvous): make_loss_fn(mesh=) over the group's mesh of one shard
+    and over 4 shards on the card (NCCL all_gather and all_reduce) against
+    one device, and 5 fit(mesh=) steps whose loss falls."""
+    import torch.distributed as dist
+    from raytracer_tpu_torch import grad, parallel
+    dev = torch.device("cuda")
+    w = rtt.models.default_world()
+    scene, cam = w.to_scene(dev), w.to_camera(dev)
+    with torch.no_grad():
+        target, _ = rtt.render_linear(scene, cam, **GRAD_SMALL)
+    start = grad.extract_params(scene, ["sphere_center", "mat_color"])
+    start["sphere_center"] = start["sphere_center"] + 0.02
+    with tempfile.TemporaryDirectory() as tmp:
+        parallel.initialize_distributed(f"file://{tmp}/rendezvous", 1, 0,
+                                        device="cuda")
+        try:
+            mesh1 = parallel.make_mesh(1)
+            if mesh1.group is None or not dist.get_backend() == "nccl":
+                raise SystemExit("4h: the mesh carries no NCCL group")
+            one = grad.make_loss_fn(scene, cam, target, engine="pallas",
+                                    **GRAD_SMALL)
+            v1, g1 = _value_and_grad(one, start)
+            for mesh in (mesh1, parallel.Mesh(["cuda:0"] * 4,
+                                              group=mesh1.group)):
+                v2, g2 = _value_and_grad(grad.make_loss_fn(
+                    scene, cam, target, engine="pallas", mesh=mesh,
+                    **GRAD_SMALL), start)
+                errs = {k: float((g1[k] - g2[k]).abs().max()) for k in g1}
+                log(f"  NCCL world size 1, {mesh}: loss {float(v2):.9e} "
+                    f"against {float(v1):.9e}, grad max|diff| {errs}")
+                if not torch.isfinite(v2) or abs(float(v1 - v2)) > \
+                        1e-4 * abs(float(v1)) or any(
+                        errs[k] > 1e-3 * float(g1[k].abs().max()) + 1e-7
+                        for k in errs):
+                    raise SystemExit("4h: the process-group loss is off")
+            half = {"mat_color": start["mat_color"] * 0.5}
+            fit = grad.fit(scene, cam, target, half, steps=5,
+                           learning_rate=1e-2, mesh=mesh1, **GRAD_SMALL)
+            log(f"  fit(mesh=) over the NCCL group, 5 Adam steps "
+                f"recovering mat_color from x0.5: losses {fit.losses}")
+            if not np.isfinite(fit.losses).all() or \
+                    not fit.losses[-1] < fit.losses[0]:
+                raise SystemExit(f"4h: fit(mesh=) did not descend "
+                                 f"({fit.losses})")
+        finally:
+            dist.destroy_process_group()
+    return fit.losses
+
+
+def phase_sharded(rtt, smi, scenes) -> dict:
+    """4h: the sharded paths on one card, meshes that name the card 4 and
+    3 times: K1 and K4 row-sharded and K3 on tile rows against their
+    one-device frames, the gradient passes sharded, the process group."""
+    t0 = time.perf_counter()
+    log(f"\n4h sharded paths (parallel/) on one card, {SHARDS} shards; "
+        f"{smi}")
+    world = rtt.models.default_world()
+    from raytracer_tpu_torch.ops.cuda import wavefront as wfc
+    from raytracer_tpu_torch.ops.cuda import wavefront_stream as ws
+    k1, k1_launches = _rows_sharded(
+        rtt, smi, "K1 headline (default world 512x512, 64 spp, depth 8)",
+        world.to_scene(), world.to_camera(), HEADLINE, "cuda", wfc,
+        "render_linear_cuda", "K1")
+    scene, cam = scenes["OBJ-10k"]
+    k4, k4_launches = _rows_sharded(
+        rtt, smi, "K4 OBJ-10k 512x512, 256 spp, depth 4 (the sorted frame)",
+        scene, cam, SORTED_K4, "cuda_stream", ws,
+        "render_linear_stream_cuda", "K4")
+    k3, k3_launches, k3_err = _k3_sharded(rtt, smi, scene, cam)
+    launches = _grad_sharded(rtt, scenes)
+    launches["K1"] += k1_launches
+    launches["K3"] += k3_launches
+    launches["K4"] += k4_launches
+    losses = _process_group(rtt)
+    log(f"  sharded phase: {time.perf_counter() - t0:.1f} s; launches "
+        f"{launches}")
+    return dict(k1=k1, k3=k3, k4=k4, k3_err=k3_err, launches=launches,
+                fit=losses)
+
+
 CLI_ARGS = ["samples=64", "ray_depth=8", "width=512"]
 # tests/test_certify.py's tile and tests/test_native.py's FFI case
 PARITY_TILES = (("default world", "default_world_source", 48, 27, 2, 8),
@@ -3889,6 +4188,7 @@ def main() -> int:
     mgrad = phase_mesh_grad(rtt, scenes)
     smain = phase_sorted_main_paths(rtt, scenes)
     lowp_launches = phase_lowp_main_path(rtt)
+    shard = phase_sharded(rtt, smi, scenes)
     perf = phase_throughput(rtt, smi)
     gperf = phase_grad_throughput(rtt, smi)
     mperf = phase_mesh_throughput(rtt, smi, scenes, mesh_main["cli"])
@@ -3938,7 +4238,7 @@ def main() -> int:
         "source": "raytracer_tpu_torch/csrc/wavefront.cu",
         "replaces": "raytracer_tpu/ops/pallas/wavefront.py:1032",
         "launches": launches + train["k1_launches"]
-        + mgrad["launches"]["K1"],
+        + mgrad["launches"]["K1"] + shard["launches"]["K1"],
         "max_abs_err": max(max_err, gperf["k1_err"]),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound"][0], "bound_by": head["bound"][1],
@@ -3946,7 +4246,8 @@ def main() -> int:
         "name": "wavefront_grad (K5)", "route": "cuda",
         "source": "raytracer_tpu_torch/csrc/wavefront_bwd.cu",
         "replaces": "raytracer_tpu/ops/pallas/wavefront_bwd.py:964",
-        "launches": train["k5_launches"] + mgrad["launches"]["K5"],
+        "launches": train["k5_launches"] + mgrad["launches"]["K5"]
+        + shard["launches"]["K5"],
         "max_abs_err": max(k5_err, gperf["k5_err"]),
         "ms": gperf["ms"], "plain_ms": gperf["plain_ms"],
         "bound_ms": gperf["bound"][0], "bound_by": gperf["bound"][1],
@@ -3954,16 +4255,16 @@ def main() -> int:
         "name": "binned_pass (K3)", "route": "cuda",
         "source": "raytracer_tpu_torch/csrc/wavefront_binned.cu",
         "replaces": "raytracer_tpu/ops/pallas/wavefront_binned.py:818",
-        "launches": mesh_main["k3_launches"],
+        "launches": mesh_main["k3_launches"] + shard["launches"]["K3"],
         "max_abs_err": max(mesh["worst"]["K3"], mperf["k3"]["err"],
-                           mesh_main["k3_err"]),
+                           mesh_main["k3_err"], shard["k3_err"]),
         "ms": mperf["k3"]["ms"], "plain_ms": mperf["k3"]["plain_ms"],
         "bound_ms": mperf["k3"]["bound"][0],
         "bound_by": mperf["k3"]["bound"][1], "library_ms": None}, {
         "name": "stream_render (K4)", "route": "cuda",
         "source": "raytracer_tpu_torch/csrc/wavefront_stream.cu",
         "replaces": "raytracer_tpu/ops/pallas/wavefront_stream.py:397",
-        "launches": mesh_main["k4_launches"],
+        "launches": mesh_main["k4_launches"] + shard["launches"]["K4"],
         "max_abs_err": max(mesh["worst"]["K4"], mperf["k4_api"]["err"],
                            mesh_main["k4_err"]),
         "ms": mperf["k4"]["ms"], "plain_ms": mperf["k4"]["plain_ms"],
@@ -3972,7 +4273,7 @@ def main() -> int:
         "name": "wavefront_render, two-level walk (K2)", "route": "cuda",
         "source": "raytracer_tpu_torch/csrc/wavefront.cu",
         "replaces": "raytracer_tpu/ops/pallas/wavefront.py:1015",
-        "launches": mgrad["launches"]["K2"],
+        "launches": mgrad["launches"]["K2"] + shard["launches"]["K2"],
         "max_abs_err": max(stream["err"]["K2"], big["k2_err"],
                            sperf["OBJ-10k"]["other_err"][0]),
         "ms": big["fwd_ms"], "plain_ms": big["k2_plain_ms"],
@@ -3981,7 +4282,7 @@ def main() -> int:
         "name": "wavefront_grad, two-level walk (K5s)", "route": "cuda",
         "source": "raytracer_tpu_torch/csrc/wavefront_bwd.cu",
         "replaces": "raytracer_tpu/ops/pallas/wavefront_bwd.py:946",
-        "launches": mgrad["launches"]["K5s"],
+        "launches": mgrad["launches"]["K5s"] + shard["launches"]["K5s"],
         "max_abs_err": max(stream["err"]["K5s"], big["k5s_err"],
                            sperf["OBJ-10k"]["other_err"][1]),
         "ms": big["bwd_ms"], "plain_ms": big["k5s_plain_ms"],

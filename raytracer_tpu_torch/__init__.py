@@ -7,23 +7,26 @@ its adjoint K5 (``csrc/wavefront_bwd.cu``) written by hand in CUDA, each
 with its plain PyTorch version (``ops/cuda/``), the wavefront renderer
 differentiated by autograd, inverse rendering, and the reference-parity
 path: the golden oracle, the sequential parity renderer and the native C++
-engine.  Module names follow the JAX package's.  The package imports
+engine, and the row-interleaved sharded rendering and gradients of
+``parallel``.  Module names follow the JAX package's.  The package imports
 neither JAX nor ``raytracer_tpu``, and needs no GPU, ``nvcc``, ``triton``
 or C++ compiler to import: the kernels and the native library are built
 at their first use.
 
-  L1  maths / rng / image            vector math, pcg3d counters, image IO
+  L1  maths / mat3 / rng / color /   vector and 3x3 math, pcg3d counters,
+      image                          colour and image IO
   L2  scene / camera / parser        tensor dataclasses, the DSL parser
   L3  intersect / materials          closest hit and scatter on wavefronts
   L4  ops (tables, diff, cuda),      K1 + K5 + dispatch, the wavefront
       render                         renderer, framebuffer finish
   L5  grad, api / cli, viewer,       inverse rendering, embedding API, CLI,
-      httpviewer                     terminal and browser viewers
+      httpviewer, parallel           terminal and browser viewers, meshes
+                                     of shards over torch.distributed
       models, utils, oracle,         scene builders, profiling, checkpoints,
       native, certify                golden oracle, C++ engine, certification
 """
 
-from . import maths, rng, image
+from . import maths, mat3, rng, color, image
 from . import scene, camera, parser
 from . import intersect, materials
 from . import models, ops, render, grad, oracle

@@ -101,6 +101,7 @@ struct Params {
   unsigned seed_word;
   int bounce, samp_off;
   int lg_spp, tw, lg_tw, th, ntx;
+  int ty_off, ty_stride;  // this render's tile rows: ty_off + k * ty_stride
   int is_last, node_exit, use_super;
 };
 
@@ -184,8 +185,11 @@ __global__ void __launch_bounds__(THREADS) binned_pass_kernel(const Params p) {
   const int sl = slot & (TILE_SLOTS - 1);
   const int pix = (int)((unsigned)sl >> p.lg_spp);
   const int s = sl & ((1 << p.lg_spp) - 1);
-  const int ty = t_idx / p.ntx;
-  const int tx = t_idx - ty * p.ntx;
+  const int ty_l = t_idx / p.ntx;
+  const int tx = t_idx - ty_l * p.ntx;
+  // a sharded render owns the interleaved tile rows ty_off + k * ty_stride;
+  // pixel ids depend only on the global (row, col)
+  const int ty = ty_l * p.ty_stride + p.ty_off;
   const int prow = ty * p.th + (int)((unsigned)pix >> p.lg_tw);
   const int pcol = tx * p.tw + (pix & (p.tw - 1));
   const bool active0 = (prow < p.height) && (pcol < p.width);
@@ -338,7 +342,8 @@ __global__ void __launch_bounds__(THREADS) binned_pass_kernel(const Params p) {
 // (n_refs, n_tops), nrunb (4, n_refs * R8), root (4), klo / khi (3), the
 // sub / group / top / supertop / padded-top AABBs (6, .), cam (12).
 // state_in (15, n) is null on the primary pass; writes state_out (15, n)
-// and keys_out (n).  spp and tw are powers of two.  Returns
+// and keys_out (n).  spp and tw are powers of two.  Slot tile row k is the
+// global tile row ty_off + k * ty_stride (0 and 1 for a whole frame).  Returns
 // cudaGetLastError() after the launch.
 extern "C" int rt_binned_pass(
     const float *sph, int n_sph, const float *sphc_b, const int *sphc_r,
@@ -350,12 +355,13 @@ extern "C" int rt_binned_pass(
     const float *topa, const float *supa, const float *topap, int n_super,
     const float *cam, const float *state_in, float *state_out, int *keys_out,
     int n, int width, int height, unsigned int seed_word, int bounce,
-    int samp_off, int spp, int tw, int th, int ntx, int primary, int is_last,
-    int node_exit, int use_super, void *stream) {
+    int samp_off, int spp, int tw, int th, int ntx, int ty_off, int ty_stride,
+    int primary, int is_last, int node_exit, int use_super, void *stream) {
   if (n < WARP || n % WARP || width < 1 || height < 1 || n_sph < 1 ||
       n_subs < 1 || n_subs % GROUP_SUBS || n_tops < 1 || n_refs < 1 ||
       (use_super && n_super * SUPER < n_tops) || ntx < 1 ||
       spp < 1 || (spp & (spp - 1)) || tw < 1 || (tw & (tw - 1)) ||
+      ty_off < 0 || ty_stride < 1 ||
       (!primary && state_in == nullptr))
     return (int)cudaErrorInvalidValue;
   Params p;
@@ -401,6 +407,8 @@ extern "C" int rt_binned_pass(
   p.lg_tw = __builtin_ctz((unsigned)tw);
   p.th = th;
   p.ntx = ntx;
+  p.ty_off = ty_off;
+  p.ty_stride = ty_stride;
   p.is_last = is_last;
   p.node_exit = node_exit;
   p.use_super = use_super;

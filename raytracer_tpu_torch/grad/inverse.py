@@ -33,10 +33,15 @@ param tensors and a train step updates them in place.
 ``make_silhouette_train_step`` and ``fit(silhouette=True)`` add the
 visibility-boundary terms of ``grad/silhouette.py`` to the interior
 gradient, so geometry can be pulled across its own silhouette under the
-unmasked loss.  Not ported yet, and raising ``NotImplementedError``:
-sharded rendering (``mesh=``, the ``parallel/`` item of ROADMAP.md's
-modules still to port); the silhouette fit is single-device, as in the JAX
+unmasked loss; the silhouette fit is single-device, as in the JAX
 package.
+
+``mesh=`` (a ``parallel.Mesh``) shards the loss's render over the mesh, as
+the JAX package routes it: ``"pallas"`` through
+``parallel.render_linear_diff_sharded`` (K1 + K5, or K2 + K5s, per shard)
+and ``"xla"`` through ``parallel.render_linear_sharded``; the scene's
+gradients are summed over the shards, and the loss, its target and the
+params live on the mesh's first device (``device`` is not read).
 """
 
 from __future__ import annotations
@@ -57,10 +62,6 @@ __all__ = ["ENGINES", "image_loss", "make_loss_fn", "make_train_step",
            "make_silhouette_train_step", "fit", "FitResult"]
 
 ENGINES = ("auto", "xla", "pallas")
-
-_NO_MESH = ("mesh= is not ported yet: sharded rendering is the 'parallel/' "
-            "item of ROADMAP.md's modules still to port")
-
 
 def image_loss(rendered_linear: torch.Tensor, target_linear: torch.Tensor
                ) -> torch.Tensor:
@@ -96,13 +97,13 @@ def make_loss_fn(scene: Scene, camera: Camera, target_linear, *,
                  seed: int = 0, mesh=None, parity_plane_sign: bool = True,
                  engine: str = "xla", device="cuda") -> Callable:
     """loss(params) -> scalar tensor, differentiable in the params (a dict
-    of PARAM_FIELDS tensors, moved to ``device`` inside the loss)."""
-    if mesh is not None:
-        raise NotImplementedError(_NO_MESH)
+    of PARAM_FIELDS tensors, moved to ``device`` inside the loss).  With a
+    ``mesh`` the render is sharded over it and ``device`` is its first
+    device."""
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; expected one of "
                          f"{ENGINES}")
-    device = _device(device)
+    device = _device(device if mesh is None else mesh.device)
     scene, camera = _move(scene, device), _move(camera, device)
     if engine == "auto":
         engine = "pallas" if device.type == "cuda" else "xla"
@@ -118,7 +119,14 @@ def make_loss_fn(scene: Scene, camera: Camera, target_linear, *,
 
     def loss(params: Mapping[str, torch.Tensor]) -> torch.Tensor:
         s = apply_params(scene, {k: v.to(device) for k, v in params.items()})
-        if engine == "pallas":
+        if mesh is not None and engine == "pallas":
+            from ..parallel.sharding import render_linear_diff_sharded
+            img = render_linear_diff_sharded(s, camera, mesh=mesh,
+                                             tri_cull=tri_cull, **shape)
+        elif mesh is not None:
+            from ..parallel.sharding import render_linear_sharded
+            img, _ = render_linear_sharded(s, camera, mesh=mesh, **shape)
+        elif engine == "pallas":
             img = diff_mod.render_linear_diff(s, camera, tri_cull=tri_cull,
                                               **shape)
         else:
@@ -205,11 +213,13 @@ def fit(scene: Scene, camera: Camera, target_linear,
     changed.  With ``checkpoint_path`` and ``resume``, a checkpoint found
     there restores the params, the optimiser state, the step and the
     losses, and the fit runs on from that step.  The optimised params live
-    on ``device``.  ``silhouette=True`` adds the visibility-boundary terms
-    (``make_silhouette_train_step``); that fit is single-device."""
-    if mesh is not None:
-        raise NotImplementedError(_NO_MESH)
-    device = _device(device)
+    on ``device``, or with a ``mesh`` on its first device, the loss's
+    render sharded over it.  ``silhouette=True`` adds the
+    visibility-boundary terms (``make_silhouette_train_step``); that fit is
+    single-device, and raises with a mesh."""
+    if silhouette and mesh is not None:
+        raise ValueError("the silhouette fit is single-device (mesh=None)")
+    device = _device(device if mesh is None else mesh.device)
     params = {k: v.detach().to(device).clone().requires_grad_(True)
               for k, v in params_init.items()}
     make_opt = optimizer or (lambda ps: torch.optim.Adam(
@@ -223,7 +233,7 @@ def fit(scene: Scene, camera: Camera, target_linear,
                                              opt, **shape)
     else:
         step_fn = make_train_step(make_loss_fn(
-            scene, camera, target_linear, **shape), opt)
+            scene, camera, target_linear, mesh=mesh, **shape), opt)
 
     start_step = 0
     losses: List[float] = []

@@ -38,7 +38,8 @@ from .scene import Scene, triangle_normals
 
 __all__ = ["INF", "T_MIN", "CHUNK", "contract3", "HitRecord", "ScenePack",
            "pack_scene", "sphere_hits_batch", "triangle_hits_batch",
-           "closest_hit_batch", "ExactPack", "exact_pack",
+           "closest_hit_batch", "closest_hit_batch_argmin", "ExactPack",
+           "exact_pack",
            "closest_hit_exact"]
 
 INF = float("inf")
@@ -255,6 +256,35 @@ def closest_hit_batch(origin, direction, scene: Scene, pack: ScenePack,
     t_safe = torch.where(hit, t_best, 0.0)
     return HitRecord(t=t_best, position=origin + t_safe[:, None] * direction,
                      normal=torch.stack([nx, ny, nz], dim=-1),
+                     mat=mat.to(torch.int32), hit=hit)
+
+
+def closest_hit_batch_argmin(origin, direction, scene: Scene,
+                             pack: ScenePack, t_min=T_MIN,
+                             parity_plane_sign: bool = True) -> HitRecord:
+    """World::hit as one [B, S] and one [B, T] block, an argmin each and a
+    gather (``raytracer_tpu/intersect.py:192``): the JAX package's
+    reference formulation, kept for studies and tests; ``closest_hit_batch``
+    is the one renders use.  A triangle wins a tie with a sphere; among
+    equal triangles the first wins here (the last in
+    ``closest_hit_batch``), the only difference between the two."""
+    ts, si = sphere_hits_batch(origin, direction, scene, pack, t_min)
+    tt, ti = triangle_hits_batch(origin, direction, scene, pack, t_min,
+                                 parity_plane_sign)
+    tri_wins = tt <= ts
+    t = torch.where(tri_wins, tt, ts)
+    hit = torch.isfinite(t)
+    t_safe = torch.where(hit, t, 0.0)
+    position = origin + t_safe[:, None] * direction
+    # sphere normal ((p - c) / r).normalize() (common.rs:94-95)
+    rad = scene.sphere_radius[si][:, None]
+    raw = (position - scene.sphere_center[si]) / torch.where(
+        rad == 0.0, torch.ones_like(rad), rad)
+    ln = maths.safe_sqrt(torch.sum(raw * raw, dim=-1, keepdim=True))
+    sph_n = raw / torch.where(ln == 0.0, torch.ones_like(ln), ln)
+    normal = torch.where(tri_wins[:, None], pack.unit_normal[ti], sph_n)
+    mat = torch.where(tri_wins, scene.tri_mat[ti], scene.sphere_mat[si])
+    return HitRecord(t=t, position=position, normal=normal,
                      mat=mat.to(torch.int32), hit=hit)
 
 

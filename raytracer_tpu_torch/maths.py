@@ -13,7 +13,8 @@ from __future__ import annotations
 import torch
 
 __all__ = ["vec3", "dot", "cross", "length", "length_squared", "normalize",
-           "near_zero", "reflect", "refract", "lerp", "safe_sqrt", "sqrt_rn"]
+           "near_zero", "reflect", "refract", "project", "lerp", "safe_sqrt",
+           "sqrt_rn"]
 
 
 class _SafeSqrt(torch.autograd.Function):
@@ -111,6 +112,11 @@ def refract(uv: torch.Tensor, n: torch.Tensor, etai_over_etat
     r_out_parallel = -safe_sqrt(
         (1.0 - length_squared(r_out_perp)).abs())[..., None] * n
     return r_out_perp + r_out_parallel
+
+
+def project(v: torch.Tensor, onto: torch.Tensor) -> torch.Tensor:
+    """Project v onto the line spanned by ``onto`` (maths.rs:21-23)."""
+    return (dot(onto, v) / length_squared(onto))[..., None] * onto
 
 
 def lerp(a, b, t) -> torch.Tensor:

@@ -166,6 +166,7 @@ def load(csrc=CSRC_DIR) -> ctypes.CDLL:
                    p, p, p, p, i,        # cam, state in / out, keys, n
                    i, i, u, i, i,        # width .. samp_off
                    i, i, i, i,           # spp, tw, th, ntx
+                   i, i,                 # tile-row offset, stride
                    i, i, i, i, p]        # primary .. use_super, stream
     fn.restype = ctypes.c_int
     fn = lib.rt_sorted_bounce

@@ -53,7 +53,7 @@ from . import wavefront as wf
 __all__ = ["LAUNCHES", "P_STATE", "TILE_ROWS", "SUPER", "SUPER_MIN_TOPS",
            "KEY_NOMESH", "KEY_DEAD", "tile_geometry", "run_bounds",
            "super_tables", "regroup", "PassTables", "binned_pass_cuda",
-           "binned_pass_ref", "render_linear_binned"]
+           "binned_pass_ref", "shard_lanes", "render_linear_binned"]
 
 LAUNCHES = 0
 
@@ -251,10 +251,12 @@ def _check_index_ranges(sph, sph_clusters, subn, topr, n_groups, order,
 
 def binned_pass_cuda(T: PassTables, cam_vec, state, *, n_slots, bounce,
                      primary, is_last, node_exit, use_super, width, height,
-                     spp, tw, th, ntx, seed_word, samp_off):
+                     spp, tw, th, ntx, seed_word, samp_off, ty_off=0,
+                     ty_stride=1):
     """One pass through K3 (the plain version for CPU tensors): returns
     (state [P_STATE, n] f32, keys [n] int32).  ``state`` is None on the
-    primary pass, which generates ``n_slots`` camera rays.  The wrapper
+    primary pass, which generates ``n_slots`` camera rays.  The slots' tile
+    row k is the global tile row ``ty_off + k * ty_stride``.  The wrapper
     checks shapes, types and devices; ``T``'s index ranges are checked
     once a frame by ``render_linear_binned``, so a pass enqueues without
     waiting for the device."""
@@ -262,7 +264,8 @@ def binned_pass_cuda(T: PassTables, cam_vec, state, *, n_slots, bounce,
     kw = dict(n_slots=n_slots, bounce=bounce, primary=primary,
               is_last=is_last, node_exit=node_exit, use_super=use_super,
               width=width, height=height, spp=spp, tw=tw, th=th, ntx=ntx,
-              seed_word=seed_word, samp_off=samp_off)
+              seed_word=seed_word, samp_off=samp_off, ty_off=ty_off,
+              ty_stride=ty_stride)
     if T.sph.device.type == "cpu":
         return binned_pass_ref(T, cam_vec, state, **kw)
     if T.sph.device.type != "cuda":
@@ -293,7 +296,7 @@ def binned_pass_cuda(T: PassTables, cam_vec, state, *, n_slots, bounce,
             ptr(T.topap), T.supa.shape[1], ptr(cam_vec),
             None if primary else ptr(state), ptr(out), ptr(keys), n,
             width, height, seed_word, bounce, samp_off, spp, tw, th, ntx,
-            int(primary), int(is_last), int(node_exit), int(use_super),
+            ty_off, ty_stride, int(primary), int(is_last), int(node_exit), int(use_super),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"K3 (rt_binned_pass) launch failed: "
@@ -339,16 +342,18 @@ def _aabb_entry(a, ray, inv):
 
 
 def _slot_geometry(slot, *, width, height, spp, tw, th, ntx, seed_word,
-                   samp_off):
+                   samp_off, ty_off=0, ty_stride=1):
     """Slot id -> (active0, prow_c, pcol_c, pix_u, s_u) as the kernel
-    decodes it."""
+    decodes it; the slots' tile row k is the global tile row ``ty_off +
+    k * ty_stride``."""
     lg_tile = (TILE_ROWS * LANES).bit_length() - 1
     t_idx = slot >> lg_tile
     sl = slot & (TILE_ROWS * LANES - 1)
     p = sl >> (spp.bit_length() - 1)
     s = sl & (spp - 1)
-    ty = t_idx // ntx
-    tx = t_idx - ty * ntx
+    ty_l = t_idx // ntx
+    tx = t_idx - ty_l * ntx
+    ty = ty_l * ty_stride + ty_off
     prow = ty * th + (p >> (tw.bit_length() - 1))
     pcol = tx * tw + (p & (tw - 1))
     active0 = (prow < height) & (pcol < width)
@@ -451,7 +456,8 @@ def top_hits(T, ray, h, alive, t_cap, row, pos, passes):
 
 def binned_pass_ref(T: PassTables, cam_vec, state, *, n_slots, bounce,
                     primary, is_last, node_exit, use_super, width, height,
-                    spp, tw, th, ntx, seed_word, samp_off):
+                    spp, tw, th, ntx, seed_word, samp_off, ty_off=0,
+                    ty_stride=1):
     """K3's plain PyTorch version: same arguments and results as
     ``binned_pass_cuda``, on whatever device the tensors are."""
     _check_tables(T, cam_vec, None if primary else state)
@@ -465,7 +471,8 @@ def binned_pass_ref(T: PassTables, cam_vec, state, *, n_slots, bounce,
         slot = state[ST_SLOT].to(torch.int32)
     active0, prow_c, pcol_c, pix_u, s_u = _slot_geometry(
         slot, width=width, height=height, spp=spp, tw=tw, th=th, ntx=ntx,
-        seed_word=seed_word, samp_off=samp_off)
+        seed_word=seed_word, samp_off=samp_off, ty_off=ty_off,
+        ty_stride=ty_stride)
 
     def full(v):
         return torch.full((n,), v, dtype=_F32, device=dev)
@@ -573,6 +580,15 @@ def binned_pass_ref(T: PassTables, cam_vec, state, *, n_slots, bounce,
 # Driver
 # ---------------------------------------------------------------------------
 
+def shard_lanes(width, height, spp, th, nty, tile_row_offset=0,
+                tile_row_stride=1) -> int:
+    """The in-image lanes of the tile rows ``tile_row_offset + k *
+    tile_row_stride`` (k < nty): the live rays of their primary pass."""
+    rows = sum(min(max(height - (tile_row_offset + k * tile_row_stride)
+                       * th, 0), th) for k in range(nty))
+    return rows * width * spp
+
+
 def _pass_tables(sph, tri, sub_counts, top_bounds, top_ranges, root,
                  ref_pts, node_orders, node_keys, node_run_bounds, key_lo,
                  key_hi, sub_aabb, grp_aabb, top_aabb, *, sph_clusters=None,
@@ -604,7 +620,9 @@ def render_linear_binned(sph, tri, sub_bounds, sub_counts, grp_bounds,
                          height, samples_per_pixel, depth, seed=0,
                          sample_offset=0, sph_clusters=None, top_order=None,
                          top_keys=None, node_exit=True, super_selection=None,
-                         bounce_caps=None, return_alive=False, plain=False):
+                         tile_row_offset=0, tile_row_stride=1,
+                         shard_tile_rows=None, bounce_caps=None,
+                         return_alive=False, plain=False):
     """Mean linear radiance [H, W, 3] + segment count through the binned
     pipeline (``render_linear_pallas_binned``'s arguments; tables from
     ``tables.pack_spheres`` and ``tables.build_tri_sorted_tables`` as
@@ -616,11 +634,26 @@ def render_linear_binned(sph, tri, sub_bounds, sub_counts, grp_bounds,
     the same sync as the segment count, counts the live rays the caps
     dropped (0: the frame is exact).  ``return_alive`` returns the live count of
     every bounce instead.  ``plain=True`` runs every pass through
-    ``binned_pass_ref``."""
+    ``binned_pass_ref``.
+
+    ``tile_row_offset`` / ``tile_row_stride`` / ``shard_tile_rows`` render
+    an interleaved subset of tile rows (``parallel.sharding``): shard i of
+    n passes (i, n, ceil(nty / n)) and owns the global tile rows i, i + n,
+    ...; the result is then its [shard_tile_rows * TH, W, 3] rows, not
+    cropped to the image (tile rows past it are dead lanes).  Per-pixel
+    math depends only on the global (row, col), so the de-interleaved
+    shards are the whole frame's pixels."""
     if depth < 1:
         raise ValueError("the binned engine needs depth >= 1")
     spp = samples_per_pixel
     tw, th, ntx, nty, rows_total = tile_geometry(width, height, spp)
+    sharded = tile_row_stride != 1 or shard_tile_rows is not None
+    if shard_tile_rows is not None:
+        nty = shard_tile_rows
+        rows_total = ntx * nty * TILE_ROWS
+    if min(nty, tile_row_stride) < 1 or tile_row_offset < 0:
+        raise ValueError(f"tile rows {tile_row_offset} + k * "
+                         f"{tile_row_stride}, k < {nty}: not a subset")
     n_slots = rows_total * LANES
     T = _pass_tables(sph, tri, sub_counts, top_bounds, top_ranges, root,
                      ref_pts, node_orders, node_keys, node_run_bounds,
@@ -632,7 +665,8 @@ def render_linear_binned(sph, tri, sub_bounds, sub_counts, grp_bounds,
         super_selection = top_bounds.shape[1] >= SUPER_MIN_TOPS
     run = binned_pass_ref if plain else binned_pass_cuda
     geo = dict(width=width, height=height, spp=spp, tw=tw, th=th, ntx=ntx,
-               seed_word=rng.seed_word(seed), samp_off=sample_offset)
+               seed_word=rng.seed_word(seed), samp_off=sample_offset,
+               ty_off=tile_row_offset, ty_stride=tile_row_stride)
 
     def one_pass(state, b):
         last = b == depth - 1
@@ -641,8 +675,9 @@ def render_linear_binned(sph, tri, sub_bounds, sub_counts, grp_bounds,
                    use_super=super_selection and not last, **geo)
 
     state, keys = one_pass(None, 0)
-    # bounce 0 traces exactly the in-image lanes
-    segments = width * height * spp
+    # bounce 0 traces exactly this render's in-image lanes
+    segments = shard_lanes(width, height, spp, th, nty, tile_row_offset,
+                           tile_row_stride)
     alive_counts = [torch.tensor(float(segments), device=sph.device)]
     seg_t = torch.zeros((), dtype=_F32, device=sph.device)
     overflow = torch.zeros((), dtype=_F32, device=sph.device)
@@ -672,7 +707,9 @@ def render_linear_binned(sph, tri, sub_bounds, sub_counts, grp_bounds,
     img = rgb.t().reshape(nty, ntx, TILE_ROWS * LANES // spp, spp, 3)
     img = img.sum(dim=3).reshape(nty, ntx, th, tw, 3)
     img = img.permute(0, 2, 1, 3, 4).reshape(nty * th, ntx * tw, 3)
-    mean = img[:height, :width] * (1.0 / spp)
+    if not sharded:
+        img = img[:height]
+    mean = img[:, :width] * (1.0 / spp)
     if return_alive:
         return mean, segments + int(seg_t), [int(c) for c in alive_counts]
     if bounce_caps is not None:

@@ -4,19 +4,23 @@
 Rays/s here is traced segments over seconds, the definition ``bench.py``
 uses.  Device work is asynchronous, so ``timed_render`` synchronises a CUDA
 device on entry and exit and times with the host clock in between.
+``trace`` records a block under ``torch.profiler`` (the JAX package's
+``jax.profiler`` capture) and writes a Chrome trace.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
 import sys
+import tempfile
 import time
 from typing import Iterator
 
 import torch
 
-__all__ = ["RenderStats", "timed_render", "ScanlineLogger"]
+__all__ = ["RenderStats", "timed_render", "trace", "ScanlineLogger"]
 
 
 @dataclasses.dataclass
@@ -67,6 +71,30 @@ def timed_render(width: int, height: int, samples_per_pixel: int,
     yield stats
     _sync(device)
     stats.seconds = time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def trace(log_dir: str | None = None) -> Iterator[str]:
+    """``torch.profiler`` capture around a block (CPU activity, and CUDA's
+    when a GPU is there); yields ``log_dir`` (default
+    ``raytracer_tpu_torch_trace`` under the temporary directory) and
+    writes the Chrome trace ``trace_<pid>_<ns>.json`` there when the block
+    ends (open it in Perfetto or chrome://tracing)."""
+    from torch.profiler import ProfilerActivity, profile
+    if log_dir is None:
+        log_dir = os.path.join(tempfile.gettempdir(),
+                               "raytracer_tpu_torch_trace")
+    os.makedirs(log_dir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    try:
+        with prof:
+            yield log_dir
+    finally:
+        prof.export_chrome_trace(os.path.join(
+            log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
 
 
 class ScanlineLogger:

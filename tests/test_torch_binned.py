@@ -279,3 +279,38 @@ def test_bad_inputs_raise(mesh2, bad):
     with pytest.raises((TypeError, ValueError)):
         wb.render_linear_binned(torch.from_numpy(tables.pack_spheres(scene)),
                                 *t, tables.camera_vec(cam), **kw, **extra)
+
+
+# (W, H, spp, depth, shards): an even tile-row count, a shard with no row
+# in the image, and an odd tile-row count over two shards
+SHARD_CASES = {"64x48_2spp_2shards": (64, 48, 2, 3, 2),
+               "48x37_2spp_3shards": (48, 37, 2, 3, 3),
+               "40x70_1spp_odd_tile_rows": (40, 70, 1, 3, 2)}
+
+
+@pytest.mark.parametrize("case", sorted(SHARD_CASES))
+def test_tile_row_shards_deinterleave_to_the_whole_frame(case):
+    """Shard i of n renders tile rows i, i + n, ...; the shards' rows put
+    back in order are the whole plain frame bit for bit, and each shard's
+    primary pass traces exactly its in-image lanes."""
+    W, H, spp, depth, n = SHARD_CASES[case]
+    scene, cam = rtt.models.mesh_scene(2)
+    kw = dict(width=W, height=H, samples_per_pixel=spp, depth=depth, seed=2)
+    whole, wsegs = _port(scene, cam, **kw)
+    _, th, _, nty, _ = wb.tile_geometry(W, H, spp)
+    per = -(-nty // n)
+    shards, segs = [], 0
+    for i in range(n):
+        mean, s, alive = _port(scene, cam, **kw, tile_row_offset=i,
+                               tile_row_stride=n, shard_tile_rows=per,
+                               return_alive=True)
+        rows = sum(1 for r in range(H) if (r // th) % n == i)
+        assert mean.shape == (per * th, W, 3)
+        assert alive[0] == rows * W * spp == wb.shard_lanes(
+            W, H, spp, th, per, i, n)
+        assert s == sum(alive)
+        shards.append(mean)
+        segs += s
+    img = torch.stack(shards).reshape(n, per, th, W, 3).transpose(0, 1)
+    img = img.reshape(n * per * th, W, 3)[:H]
+    assert torch.equal(img, whole) and segs == wsegs

@@ -426,6 +426,39 @@ def test_k3_matches_plain_version(dev, name):
                                          bounce_caps=(32,) * 3)[2]) > 0
 
 
+@pytest.mark.parametrize("name", ["mesh_scene3", "obj_mesh_scene"])
+def test_k3_on_tile_rows_matches_plain_version(dev, name):
+    """K3 on interleaved tile rows (a sharded render: offset i, stride 3,
+    ceil(nty / 3) tile rows each, 37 rows so the last tile rows are dead)
+    against ``binned_pass_ref`` on the same rows, and the shards
+    de-interleaved against the whole kernel frame, with 3e's bar."""
+    from raytracer_tpu_torch.ops.cuda import wavefront_binned as wb
+    scene, cam = _mesh(name)
+    (sph, scl, *t) = ops.scene_sorted_tables(scene, dev)
+    order, keys = ops._camera_order(t[4], cam, dev)
+    args = (sph, *t, tables.camera_vec(cam).to(dev))
+    kw = dict(MKW, height=37, sph_clusters=scl, top_order=order,
+              top_keys=keys)
+    whole, wsegs = wb.render_linear_binned(*args, **kw)
+    _, th, _, nty, _ = wb.tile_geometry(64, 37, MKW["samples_per_pixel"])
+    n, per = 3, -(-nty // 3)
+    shards, segs = [], 0
+    for i in range(n):
+        sh = dict(tile_row_offset=i, tile_row_stride=n, shard_tile_rows=per)
+        before = wb.LAUNCHES
+        km, ks = wb.render_linear_binned(*args, **kw, **sh)
+        torch.cuda.synchronize()
+        assert wb.LAUNCHES == before + MKW["depth"]
+        pm, ps = wb.render_linear_binned(*args, **kw, **sh, plain=True)
+        assert km.shape == (per * th, 64, 3)
+        assert torch.isfinite(km).all() and _image_within(km, pm, ks, ps)
+        shards.append(km)
+        segs += ks
+    img = torch.stack(shards).reshape(n, per, th, 64, 3).transpose(0, 1)
+    img = img.reshape(n * per * th, 64, 3)[:37]
+    assert _image_within(img, whole, segs, wsegs)
+
+
 def test_mesh_dispatch_launches_k3_unbanded_and_k4_banded(dev):
     from raytracer_tpu_torch.ops.cuda import wavefront_binned as wb
     from raytracer_tpu_torch.ops.cuda import wavefront_stream as ws

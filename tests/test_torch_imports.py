@@ -33,6 +33,7 @@ MODULES = [
     "raytracer_tpu_torch.ops.cuda.wavefront_bwd",
     "raytracer_tpu_torch.ops.cuda.wavefront_stream",
     "raytracer_tpu_torch.ops.cuda.wavefront_binned",
+    "raytracer_tpu_torch.ops.cuda.wavefront_sorted",
     "raytracer_tpu_torch.ops.diff",
     "raytracer_tpu_torch.render",
     "raytracer_tpu_torch.utils.profiling",
@@ -49,6 +50,12 @@ MODULES = [
     "raytracer_tpu_torch.certify",
     "raytracer_tpu_torch.viewer",
     "raytracer_tpu_torch.httpviewer",
+    "raytracer_tpu_torch.parallel",
+    "raytracer_tpu_torch.parallel.mesh",
+    "raytracer_tpu_torch.parallel.distributed",
+    "raytracer_tpu_torch.parallel.sharding",
+    "raytracer_tpu_torch.color",
+    "raytracer_tpu_torch.mat3",
 ]
 
 # Each module is imported in the same fresh interpreter, one after the

@@ -148,20 +148,31 @@ def test_train_steps_through_kernel_path_reduce_loss():
 @pytest.mark.parametrize("call", ["fit_silhouette_mesh", "fit_mesh",
                                   "loss_mesh"])
 def test_unported_options_raise(call):
+    """``mesh=`` raised here until ``parallel/`` was ported.  Now only the
+    silhouette fit, single-device as in the JAX package, raises with a
+    mesh; ``fit`` and ``make_loss_fn`` over two CPU shards give the
+    one-device losses."""
+    from raytracer_tpu_torch import parallel
     w = rtt.models.sphere_and_ground()
     scene, cam = w.to_scene(), w.to_camera()
-    kw = dict(width=4, height=4, samples_per_pixel=1, depth=1, device="cpu")
+    kw = dict(width=4, height=4, samples_per_pixel=1, depth=1)
     target = torch.zeros(4, 4, 3)
     params = tgrad.extract_params(scene, ["mat_color"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if call == "fit_silhouette_mesh":
-            # the silhouette fit is single-device, as in the JAX package
+    mesh = parallel.make_mesh(2, device="cpu")
+    if call == "fit_silhouette_mesh":
+        with pytest.raises(ValueError, match="single-device"):
             tgrad.fit(scene, cam, target, params, silhouette=True,
-                      mesh=object(), **kw)
-        elif call == "fit_mesh":
-            tgrad.fit(scene, cam, target, params, mesh=object(), **kw)
-        else:
-            tgrad.make_loss_fn(scene, cam, target, mesh=object(), **kw)
+                      mesh=mesh, **kw)
+    elif call == "fit_mesh":
+        one = tgrad.fit(scene, cam, target, params, steps=2, device="cpu",
+                        **kw)
+        two = tgrad.fit(scene, cam, target, params, steps=2, mesh=mesh,
+                        **kw)
+        assert two.losses == one.losses
+    else:
+        one = tgrad.make_loss_fn(scene, cam, target, device="cpu", **kw)
+        two = tgrad.make_loss_fn(scene, cam, target, mesh=mesh, **kw)
+        assert float(two(params)) == float(one(params))
 
 
 @pytest.mark.parametrize("call", ["make_loss_fn", "fit",
